@@ -6,7 +6,7 @@ two-component mixture with an ~8-sigma energy barrier — showing the
 inference surfaces beyond point estimates:
 
 1. ``return_samples=m``: thinned raw chain states stream straight out
-   of the device kernel (each draw block is DMA'd to HBM mid-run, so
+   of the device kernel (each draw row is stored to HBM mid-run, so
    memory stays bounded by the m you ask for).  Raw draws feed
    anything expectations can't: quantiles, intervals, posterior
    predictive simulation.

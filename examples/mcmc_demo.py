@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Parallel MCMC with convergence diagnostics on a bimodal target.
 
-2048 independence-sampler Metropolis-Hastings chains (one per TPU lane)
+2048 independence-sampler Metropolis-Hastings chains (one per device thread)
 draw from an unnormalised two-bump density given only as a Python pdf.
 Besides the moment estimates, the run surfaces the two health signals
 the framework adds over point estimates: the sampling-phase acceptance

@@ -92,8 +92,7 @@ print(f"   achieved  {final:.4f}  at means "
       f"({float(params[0, 0]):.3f}, {float(params[1, 0]):.3f})")
 
 # 5. Serve the correlated-Gaussian study: one AOT handle, R independent
-#    replications per dispatch (the nd MH kernel batches them as a grid
-#    dimension on TPU), then extend the chains with checkpoint/resume and
+#    replications per dispatch, then extend the chains with checkpoint/resume and
 #    confirm mixing with split-R-hat.
 prog = integrator.compile_mcmc(
     [lambda x, y: x * y], log_density, [prop, prop],

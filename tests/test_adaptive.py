@@ -253,58 +253,6 @@ class TestSamplerModeWeights:
         )
         assert abs(r.values[0] - BUMP_TRUTH) < 2e-4
 
-    def test_nd_learned_proposal_rides_kernel(self):
-        """nd sampler-mode (round 4): per-dimension learned tables ride
-        the nd kernel via structured weight descriptors — each custom
-        dim's q is its own sampling density, p dims trace or look up
-        uniform tables.  No fallback warning; value matches the
-        closed form; stderr/diagnostics and meshes compose."""
-        import warnings
-
-        from tpu_montecarlo import MonteCarloIntegrator, adapt_proposal
-
-        def bump2(x, y):
-            return math.exp(
-                -200.0 * ((x - 1.0) ** 2 + (y + 0.5) ** 2)
-            )
-
-        t2 = [
-            Distribution.normal(0.0, 2.0),
-            Distribution.normal(0.0, 2.0),
-        ]
-        q2 = adapt_proposal(bump2, t2, seed=7)
-        exact = (
-            (math.pi / 200.0)
-            * (
-                math.exp(-0.5 * (1.0 / 2.0) ** 2)
-                / (2.0 * math.sqrt(2.0 * math.pi))
-            )
-            * (
-                math.exp(-0.5 * (0.5 / 2.0) ** 2)
-                / (2.0 * math.sqrt(2.0 * math.pi))
-            )
-        )
-        integ = MonteCarloIntegrator(backend="pallas")
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            r = integ.integrate_importance_sampling(
-                [bump2], t2, q2, n_samples=2_000_000, seed=3
-            )
-        assert abs(r.values[0] - exact) / exact < 0.02
-        r2 = integ.integrate_importance_sampling(
-            [bump2], t2, q2, n_samples=1_000_000, seed=4,
-            return_stderr=True, return_diagnostics=True,
-        )
-        assert r2.stderr[0] > 0
-        assert abs(r2.values[0] - exact) < 8 * float(r2.stderr[0])
-        assert r2.diagnostics["ess"] > 0
-        # mixed analytic/custom proposal dims
-        r3 = integ.integrate_importance_sampling(
-            [bump2], t2, [q2[0], Distribution.normal(-0.5, 0.3)],
-            n_samples=2_000_000, seed=5,
-        )
-        assert abs(r3.values[0] - exact) / exact < 0.03
-
     def test_nd_learned_proposal_sharded(self, mesh8):
         from tpu_montecarlo import MonteCarloIntegrator, adapt_proposal
 

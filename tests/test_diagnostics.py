@@ -147,9 +147,9 @@ class TestSplitRhat:
         )
         assert abs(rp.diagnostics["r_hat"][0] - rx.diagnostics["r_hat"][0]) < 0.02
         assert rp.diagnostics["ess"][0] > 0
-        # ESS scales with the kernel's rounded-up chain count (1024 vs
-        # the XLA plan's 512 at 256 requested) — compare per chain.
-        per_chain_p = rp.diagnostics["ess"][0] / 1024.0
+        # ESS scales with the chain count; both plans run the 256
+        # requested chains — compare per chain.
+        per_chain_p = rp.diagnostics["ess"][0] / 256.0
         per_chain_x = rx.diagnostics["ess"][0] / 256.0
         assert abs(per_chain_p - per_chain_x) / per_chain_x < 0.25
 
@@ -200,70 +200,6 @@ class TestSplitRhat:
             < 0.02
         )
         assert rs.diagnostics["ess"][0] > 0
-
-
-class TestNdKernelDiagnostics:
-    """Round 5: split-R-hat/ESS IN-KERNEL on the nd path too — the 1-D
-    stat-block design (rows 3-6) generalizes unchanged because the
-    statistics live in function-value space."""
-
-    def test_nd_kernel_matches_xla(self):
-        import warnings as _w
-
-        n01 = Distribution.normal(0.0, 1.0)
-        prop = Distribution.normal(0.0, 2.0)
-        fns = [lambda x, y: x + y, lambda x, y: x * y]
-        kw = dict(
-            n_steps=800, n_chains=1024, n_burnin=100, seed=5,
-            return_diagnostics=True,
-        )
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            rp = MonteCarloIntegrator(backend="pallas").integrate_mcmc(
-                fns, [n01, n01], [prop, prop], **kw
-            )
-        rx = MonteCarloIntegrator(backend="xla").integrate_mcmc(
-            fns, [n01, n01], [prop, prop], **kw
-        )
-        assert abs(rp.diagnostics["r_hat"][0] - 1.0) < 0.02
-        assert (
-            abs(rp.diagnostics["r_hat"][0] - rx.diagnostics["r_hat"][0])
-            < 0.02
-        )
-        # Same kernel chain plan both ways: per-chain ESS comparable.
-        assert rp.diagnostics["ess"][0] > 0
-
-    def test_nd_kernel_with_stderr_and_table_dim(self):
-        import warnings as _w
-
-        b = Distribution.beta(2.0, 5.0)
-        n01 = Distribution.normal(0.0, 1.0)
-        prop = Distribution.normal(0.0, 2.0)
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = MonteCarloIntegrator(backend="pallas").integrate_mcmc(
-                [lambda x, y: x * y], [b, n01], [b, prop],
-                n_steps=800, n_chains=1024, n_burnin=100, seed=7,
-                return_diagnostics=True, return_stderr=True,
-            )
-        assert r.stderr is not None and r.stderr[0] > 0
-        assert 0.99 < r.diagnostics["r_hat"][0] < 1.05
-        assert abs(r.values[0]) < 5 * r.stderr[0]
-
-    def test_nd_joint_fn_diagnostics_in_kernel(self):
-        import warnings as _w
-
-        prop = Distribution.normal(0.0, 2.0)
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = MonteCarloIntegrator(backend="pallas").integrate_mcmc(
-                [lambda x, y: x * x + y * y],
-                lambda x, y: -0.5 * (x * x + y * y), [prop, prop],
-                n_steps=800, n_chains=1024, n_burnin=100, seed=9,
-                return_diagnostics=True,
-            )
-        assert 0.99 < r.diagnostics["r_hat"][0] < 1.05
-        assert abs(r.values[0] - 2.0) < 0.15
 
 
 class TestRhatFormula:

@@ -292,7 +292,7 @@ class TestCompositions:
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernel tier (interpret mode on CPU; compiled on TPU)
+# Pallas kernel tier (interpret mode on the CPU; compiled on the GPU)
 # ---------------------------------------------------------------------------
 
 
@@ -300,7 +300,7 @@ class TestPallasKernel:
     """In-kernel HMC: the leapfrog gradient is jax.grad of the
     closed-form analytic log-density traced into the kernel body
     (gather-free elementwise ops); CUSTOM table targets gather the
-    log-table interpolant's slope instead (mcmc_pallas._log_pdf_grad),
+    log-table interpolant's slope instead (mcmc_pallas._Chains.log_pdf_grad),
     so both run at kernel speed."""
 
     @pytest.fixture(scope="class")
@@ -413,32 +413,6 @@ class TestPallasKernel:
             np.testing.assert_allclose(
                 np.asarray(vals)[i], s.values, rtol=1e-5
             )
-
-    def test_nd_joint_target_in_kernel(self, kern):
-        # Joint traced log-densities differentiate in-kernel too (the
-        # traced expression's grad is gather-free elementwise ops).
-        import warnings
-
-        rho = 0.6
-
-        def logp(x, y):
-            return -0.5 * (x * x - 2 * rho * x * y + y * y) / (
-                1 - rho * rho
-            )
-
-        with warnings.catch_warnings(record=True) as w:
-            warnings.simplefilter("always")
-            r = kern.integrate_mcmc(
-                [lambda x, y: x * y],
-                logp,
-                HMC(step_size=0.35, n_leapfrog=9, init_range=(-2.0, 2.0)),
-                n_steps=2500,
-                n_chains=512,
-                n_burnin=300,
-                seed=29,
-            )
-        assert not any("XLA" in str(x.message) for x in w)
-        assert abs(r.values[0] - rho) < 0.08
 
     def test_nd_product_adaptive_with_stderr(self, kern):
         r = kern.integrate_mcmc(
@@ -618,7 +592,7 @@ class TestValidation:
     def test_pallas_table_target_rides_kernel(self):
         # In-kernel HMC on a CUSTOM table target: the position gradient
         # is the log-table interpolant's gathered slope
-        # (mcmc_pallas._log_pdf_grad) — no fallback warning, and the
+        # (mcmc_pallas._Chains.log_pdf_grad) — no fallback warning, and the
         # estimates match the XLA route's autodiff-of-interp statistics.
         import warnings
 

@@ -1,5 +1,5 @@
 """Uniform-u inverse-CDF resampling and uniform-grid interpolation — the
-TPU-friendly table machinery that replaces on-device searchsorted."""
+table machinery that replaces on-device searchsorted."""
 
 import numpy as np
 import pytest

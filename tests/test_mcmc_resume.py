@@ -164,13 +164,14 @@ class TestResumePallas:
         assert r.acceptance_rate == 0.0
 
     def test_xla_minted_state_reroutes_to_xla(self, pallas_integrator):
-        """A resume state whose chain count matches the XLA plan (but not
-        the Pallas plan) keeps routing to the XLA backend instead of
-        erroring."""
+        """A resume state minted by the XLA backend resumes under
+        backend='pallas' without error: the kernel's chain plan now
+        carries exactly the XLA plan's count (256-chain multiples split
+        into power-of-two tiles), so the state rides the kernel."""
         from tpu_montecarlo import MonteCarloIntegrator
         from tpu_montecarlo.ops.mcmc_pallas import plan_state_chains
 
-        assert plan_state_chains(256) != 256  # premise of the test
+        assert plan_state_chains(256) == 256
         d = Distribution.normal(0.0, 1.0)
         q = Distribution.normal(0.0, 2.0)
         r1 = MonteCarloIntegrator(backend="xla").integrate_mcmc(
@@ -178,12 +179,11 @@ class TestResumePallas:
             n_steps=100, n_chains=256, n_burnin=20, return_state=True,
         )
         assert r1.chain_state.n_chains == 256
-        with pytest.warns(UserWarning, match="pallas"):
-            r2 = pallas_integrator.integrate_mcmc(
-                [lambda x: x], d, q,
-                n_steps=100, n_chains=256, n_burnin=0,
-                initial_state=r1.chain_state, return_state=True, seed=43,
-            )
+        r2 = pallas_integrator.integrate_mcmc(
+            [lambda x: x], d, q,
+            n_steps=100, n_chains=256, n_burnin=0,
+            initial_state=r1.chain_state, return_state=True, seed=43,
+        )
         assert r2.chain_state.n_chains == 256
         assert abs(r2.values[0]) < 0.25
 

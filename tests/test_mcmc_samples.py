@@ -4,7 +4,7 @@ user-bounded memory — raw chain output for downstream inference, a
 surface the expectations-only reference lacks (its chains never leave
 the device, src/shader_gen.rs:390-392).  Composes with stderr and
 diagnostics; 1-D shape (m, n_chains), nd (m, n_chains, d).  Rides the
-Pallas kernel on eligible workloads (draw blocks DMA-streamed to HBM,
+Pallas kernel on eligible workloads (draw rows stored from registers,
 estimates bit-identical to the samples-free run); XLA otherwise.
 """
 
@@ -194,7 +194,7 @@ class TestSamplesNd:
 class TestCompiledDraws:
     """``compile_mcmc(return_samples=m)`` — the serving handle returns
     the thinned draws LAST; composes with seed/param batches (round 5:
-    the kernel's draw DMA offset carries the grid-rep index), untempered
+    the kernel's draw row offset carries the grid-rep index), untempered
     handles only."""
 
     def test_handle_matches_integrate_mcmc(self):
@@ -247,7 +247,7 @@ class TestCompiledDraws:
             vb, ab, sb = prog(np.arange(3, dtype=np.uint32) + 40)
             prog1 = integ.compile_mcmc(*args, return_samples=5, **kw)
             v1, a1, s1 = prog1(41)
-        assert np.asarray(sb).shape == (3, 5, 1024)
+        assert np.asarray(sb).shape == (3, 5, 512)
         np.testing.assert_array_equal(np.asarray(sb)[1], np.asarray(s1))
 
     def test_param_batched_draws_follow_their_targets(self):
@@ -267,7 +267,7 @@ class TestCompiledDraws:
         )
         v, a, s = prog(np.arange(3, dtype=np.uint32), tp, pp)
         s = np.asarray(s)
-        assert s.shape == (3, 8, 1024)
+        assert s.shape == (3, 8, 512)
         for i, m in enumerate(means):
             assert abs(s[i].mean() - m) < 0.2
 
@@ -281,7 +281,7 @@ class TestCompiledDraws:
             seed_batch=2, return_samples=4,
         )
         v, a, s = prog(np.arange(2, dtype=np.uint32) + 7)
-        assert np.asarray(s).shape == (2, 4, 1024, 2)
+        assert np.asarray(s).shape == (2, 4, 512, 2)
         assert abs(np.asarray(s).mean()) < 0.1
 
 
@@ -308,7 +308,7 @@ class TestValidation:
         """Raw draws ride the Pallas kernel (round 4): no reroute
         warning, the samples carry the kernel's rounded-up chain count
         (plan_mcmc_grid), and the estimates are BIT-equal to the
-        samples-free kernel run (the DMA-streamed draw blocks never
+        samples-free kernel run (the stored draw rows never
         touch the RNG or the accumulators)."""
         import warnings
 

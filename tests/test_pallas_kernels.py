@@ -1,7 +1,7 @@
-"""Pallas kernel tier: interpreter-mode runs on CPU (SURVEY.md §5 sanitizer
-tier — the kernels execute in the Pallas interpreter, validating kernel
-logic without TPU hardware; statistical tolerances are loose because
-interpreter runs must stay small)."""
+"""Pallas kernel tier: interpreter-mode runs on the CPU (SURVEY.md §5
+sanitizer tier — the Triton-route kernels execute in the Pallas
+interpreter, validating kernel logic without a GPU; statistical
+tolerances are loose because interpreter runs must stay small)."""
 
 import numpy as np
 import pytest
@@ -53,9 +53,10 @@ class TestSupportMatrix:
 
     def test_mcmc_grid_covers_chains(self):
         for chains in (1, 256, 1024, 4096, 65536):
-            programs, rows, actual = plan_mcmc_grid(chains)
+            programs, per, actual = plan_mcmc_grid(chains)
             assert actual >= chains
-            assert rows % 8 == 0
+            # A power-of-two chain tile, one warp to four.
+            assert per & (per - 1) == 0 and 32 <= per <= 128
 
 
 class TestInterpretedIntegrate:
@@ -148,21 +149,24 @@ class TestInterpretedIntegrate:
             assert abs(vals[1] - 6.0 / 56.0) < 0.02
 
     def test_stratified_segments_divide_rows(self):
-        """The auto-picked stratum count is a power of two capped by both
-        the knot count and rows//8, so it divides every block row count —
-        ANY m-knot table preps without error (the m=384 / m=3000 cases
-        used to raise: min(m//128, 32) need not divide 256)."""
+        """The stratum count is a power of two capped by the knot count
+        and block // 8, so it divides every block — ANY m-knot table
+        preps without error."""
         from tpu_montecarlo.ops.integrate_pallas import (
+            STRATUM_KNOTS,
             prep_inv_table_stratified,
+            strata_for,
         )
 
         for m in (2, 100, 192, 384, 1000, 3000, 4096, 8192):
-            for rows in (8, 64, 256):
+            for block in (128, 512, 1024):
+                strata = strata_for(block, m)
+                assert block % strata == 0 and block // strata >= 8
                 ts, dts = prep_inv_table_stratified(
-                    np.linspace(0.0, 1.0, m).astype(np.float32), rows
+                    np.linspace(0.0, 1.0, m).astype(np.float32), strata
                 )
-                assert ts.shape == (rows, 128)
-                assert dts.shape == (rows, 128)
+                assert ts.shape == (strata * STRATUM_KNOTS,)
+                assert dts.shape == (strata * STRATUM_KNOTS,)
 
     @pytest.mark.parametrize("m", [100, 384, 3000])
     def test_custom_table_any_size(self, m):
@@ -199,20 +203,16 @@ class TestInterpretedIntegrate:
             )
 
     def test_high_k_custom_shrinks_block_rows(self):
-        """K=64 custom kernels exceed VMEM at 256 block rows; the builder
-        shrinks the block (and stratum count) instead of falling off the
-        ~100x XLA table-sampling cliff."""
+        """K=64 custom kernels keep their 64 accumulators in registers by
+        shrinking the block (and with it the stratum count) instead of
+        spilling."""
         from tpu_montecarlo import Distribution
-        from tpu_montecarlo.ops.integrate_pallas import pick_block_rows
+        from tpu_montecarlo.ops.integrate_pallas import pick_block
         from tpu_montecarlo.sampling import dist_spec_of
 
-        assert pick_block_rows(8, DistKind.CUSTOM) == 256
-        assert pick_block_rows(64, DistKind.CUSTOM) == 128
-        assert pick_block_rows(128, DistKind.CUSTOM) == 64
-        # gapped tables are host-built at rows//8 strata, so the block
-        # shrinks for them too (floor 64 rows = 1024 u-knots).
-        assert pick_block_rows(64, DistKind.CUSTOM, gapped=True) == 128
-        assert pick_block_rows(128, DistKind.CUSTOM, gapped=True) == 64
+        assert pick_block(8) == 1024
+        assert pick_block(64) == 128
+        assert pick_block(8, with_stderr=True) == 512
 
         edges = np.linspace(0.0, 1.0, 65)
 
@@ -358,7 +358,7 @@ class TestInterpretedMCMC:
 
 class TestInterpretedISWeights:
     """In-kernel table-PDF importance sampling (backend='pallas' routes
-    through the interpreter off-TPU)."""
+    through the interpreter on the CPU)."""
 
     @staticmethod
     def _untraceable_pdf(x):
@@ -412,38 +412,7 @@ class TestInterpretedISWeights:
         assert abs(r_pallas.values[0] - r_xla.values[0]) < 0.02
 
 
-class TestMcmcVmemGate:
-    def test_gate_counts_table_bytes(self):
-        """Regression: the MCMC VMEM gate ignored resident custom-table
-        bytes, so an incompressible giant user table passed routing and
-        the kernel compile-OOMed instead of falling back to XLA."""
-        from tpu_montecarlo.ops.mcmc_pallas import mcmc_vmem_fits
-
-        assert mcmc_vmem_fits(2, 32, 4)
-        assert not mcmc_vmem_fits(
-            2, 32, 4, table_bytes=17 * 1024 * 1024
-        )
-
-    def test_table_bytes_estimate(self):
-        from tpu_montecarlo.api import _mcmc_table_bytes
-        from tpu_montecarlo.sampling import dist_spec_of
-
-        from tpu_montecarlo import Distribution
-
-        beta = Distribution.beta(2.0, 5.0)
-        norm = Distribution.normal(0.0, 1.0)
-        b = _mcmc_table_bytes(
-            dist_spec_of(norm), dist_spec_of(beta), beta, norm
-        )
-        # Target-only CUSTOM: one padded (values, dx) log-table pair.
-        assert b > 0
-        assert (
-            _mcmc_table_bytes(
-                dist_spec_of(norm), dist_spec_of(norm), norm, norm
-            )
-            == 0
-        )
-
+class TestMcmcBuilderValidation:
     def test_use_init_state_requires_with_state(self):
         from tpu_montecarlo.ops.mcmc_pallas import build_mcmc_fn_pallas
         from tpu_montecarlo.sampling import DistKind

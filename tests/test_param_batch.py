@@ -2,7 +2,7 @@
 (seed, distribution-parameter) sweep in a single dispatch.
 
 ``compile_integrate(..., param_batch=True)`` makes the family parameters a
-runtime (R, 2) batch input (one SMEM row per kernel grid rep on the Pallas
+runtime (R, 2) batch input (one params row per kernel grid rep on the Pallas
 path, a traced-once lax.map on the XLA path), so each batch element must
 reproduce the corresponding unbatched handle bit-for-bit.  A capability
 beyond the reference, which baked parameters into per-call uniform buffers
@@ -236,7 +236,7 @@ class TestMcmcParamBatch:
 
 class TestParamBatchSharded:
     def test_sharded_sweep_tracks_parameters(self):
-        # The sweep through an 8-device mesh program (psum over ICI) must
+        # The sweep through an 8-device mesh program (psum across devices) must
         # still route each parameter row to its batch element.  (Plans
         # re-round for the device count, so mesh-vs-single is a
         # statistical check, not a bit-equality one — the bit-equality

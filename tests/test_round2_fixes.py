@@ -26,7 +26,7 @@ class TestBlockTraceabilityProbe:
     """A sample-dependent ``while`` traces as a scalar program but its
     vector cond cannot lower inside a Pallas kernel; the eligibility gate
     must route it to the XLA sweep instead of crashing (round-1 confirmed
-    crash on the TPU default path)."""
+    crash on the kernel default path)."""
 
     def test_block_traceable_rejects_while(self):
         from tpu_montecarlo.api import _block_traceable
@@ -378,84 +378,3 @@ class TestCodeReviewRound2:
                 10, 256, 0, with_state=True, seed_batch=2,
             )
 
-    def test_vmem_gate_and_adaptive_rows(self):
-        """K=64 custom-table kernels exceed the 16MB VMEM budget at the
-        default 256 block rows (measured compile-time OOM on v5e: 64
-        accumulator blocks = 8MB doubled by scoped temporaries); the
-        builder shrinks the block instead, keeping the workload in-kernel
-        (the XLA table-sampling fallback is ~100x slower)."""
-        from tpu_montecarlo.ops.integrate_pallas import (
-            integrate_vmem_fits,
-            pick_block_rows,
-        )
-        from tpu_montecarlo.sampling import DistKind
-
-        assert integrate_vmem_fits(8, DistKind.CUSTOM)
-        assert integrate_vmem_fits(32, DistKind.CUSTOM)
-        assert not integrate_vmem_fits(64, DistKind.CUSTOM)  # at 256 rows
-        assert integrate_vmem_fits(64, DistKind.CUSTOM, rows=128)
-        assert pick_block_rows(64, DistKind.CUSTOM) == 128
-        assert integrate_vmem_fits(64, DistKind.NORMAL)
-
-        # End-to-end: forced pallas stays in-kernel (no warning) with
-        # correct bin masses.
-        edges = np.linspace(0.0, 1.0, 65)
-        def bin_fn(lo, hi):
-            return lambda v: (v >= lo) * (v < hi)
-        fns = [bin_fn(float(a), float(b)) for a, b in zip(edges[:-1], edges[1:])]
-        beta = Distribution.beta(2.0, 5.0)
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            r = MonteCarloIntegrator(backend="pallas").integrate(
-                fns, beta, n_samples=200_000
-            )
-        assert abs(sum(r.values) - 1.0) < 1e-3
-
-    def test_vmem_gate_counts_seed_batch_output_buffer(self):
-        """The kernel keeps the whole (seed_batch x programs, 128)
-        partial-sum buffer resident in VMEM; huge serving batches must be
-        counted by the gate and routed to XLA instead of compile-OOMing."""
-        from tpu_montecarlo.ops.integrate_pallas import (
-            integrate_vmem_fits,
-            pick_block_rows,
-        )
-        from tpu_montecarlo.sampling import DistKind
-
-        # 40k output rows alone are ~20MB > the 16MB budget.
-        assert not integrate_vmem_fits(2, DistKind.NORMAL, out_rows=40_000)
-        assert (
-            pick_block_rows(
-                2, DistKind.NORMAL,
-                plan_samples=100_000, seed_batch=40_000,
-            )
-            is None
-        )
-        # Modest batches still fit at full block size.
-        assert (
-            pick_block_rows(
-                8, DistKind.NORMAL, plan_samples=10**8, seed_batch=10
-            )
-            == 256
-        )
-
-        # End-to-end: the forced-pallas gate warns and falls back to the
-        # XLA sweep instead of building an OOM-bound kernel.
-        d = Distribution.normal(0.0, 1.0)
-        it = MonteCarloIntegrator(backend="pallas")
-        with pytest.warns(UserWarning, match="not\\s+Pallas-eligible"):
-            prog = it.compile_integrate(
-                [lambda x: x], d, n_samples=50_000, seed_batch=40_000
-            )
-        assert prog is not None
-
-        # Same story for the MCMC kernel's resident sums buffer.
-        from tpu_montecarlo.ops.mcmc_pallas import mcmc_vmem_fits
-
-        assert mcmc_vmem_fits(2, 32, 1, seed_batch=10)
-        assert not mcmc_vmem_fits(2, 32, 1, seed_batch=40_000)
-        with pytest.warns(UserWarning, match="not\\s+Pallas-eligible"):
-            prog = it.compile_mcmc(
-                [lambda x: x], d, Distribution.normal(0.0, 2.0),
-                n_steps=10, n_chains=256, n_burnin=0, seed_batch=40_000,
-            )
-        assert prog is not None

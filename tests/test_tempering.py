@@ -271,47 +271,6 @@ class TestTemperedIndependence:
     def integ_p(self):
         return MonteCarloIntegrator(backend="pallas")
 
-    def test_matches_xla_and_finds_both_modes(self, integ_p):
-        import warnings as _w
-
-        x = np.linspace(-8.0, 8.0, 4001)
-        p = np.exp(-0.5 * (x - 4) ** 2 / 0.25) + np.exp(
-            -0.5 * (x + 4) ** 2 / 0.25
-        )
-        bim = Distribution.from_pdf_table(x, p)
-        prop = Distribution.normal(0.0, 5.0)
-        fns = [lambda v: v, lambda v: v * v]
-        kw = dict(
-            n_steps=1500, n_chains=1024, n_burnin=300, seed=7,
-            temperatures=[1.0, 2.0, 4.0],
-        )
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = integ_p.integrate_mcmc(fns, bim, prop, **kw)
-        rx = MonteCarloIntegrator(backend="xla").integrate_mcmc(
-            fns, bim, prop, **kw
-        )
-        assert abs(r.values[0]) < 0.3  # both modes visited
-        assert abs(r.values[1] - 16.25) < 0.5
-        assert abs(r.values[1] - rx.values[1]) < 0.5
-        assert (
-            abs(r.diagnostics["swap_rate"] - rx.diagnostics["swap_rate"])
-            < 0.05
-        )
-
-    def test_analytic_kernel_with_stderr(self, integ_p):
-        import warnings as _w
-
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = integ_p.integrate_mcmc(
-                [lambda v: v * v], Distribution.normal(0.0, 1.5),
-                Distribution.normal(0.0, 3.0),
-                n_steps=800, n_chains=1024, n_burnin=100, seed=3,
-                temperatures=[1.0, 4.0], return_stderr=True,
-            )
-        assert abs(r.values[0] - 2.25) < max(6 * r.stderr[0], 0.1)
-
     def test_compiled_handle(self, integ_p):
         prog = integ_p.compile_mcmc(
             [lambda v: v], Distribution.normal(1.0, 1.0),
@@ -322,46 +281,6 @@ class TestTemperedIndependence:
         v, a, sw = prog(np.arange(2, dtype=np.uint32))
         assert abs(float(np.asarray(v)[0, 0]) - 1.0) < 0.1
         assert 0.0 <= float(np.asarray(sw)[0]) <= 1.0
-
-    def test_nd_mixed_table_dims_in_kernel(self, integ_p):
-        # Round 5: any analytic/CUSTOM mix of product target dims runs
-        # tempered in-kernel (per-dim log-table lane-gathers).
-        import warnings as _w
-
-        b = Distribution.beta(2.0, 5.0)
-        n01 = Distribution.normal(0.0, 1.0)
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = integ_p.integrate_mcmc(
-                [lambda x, y: x * y, lambda x, y: x * x], [b, n01],
-                RandomWalk(
-                    step_size=0.3,
-                    init_range=[(0.05, 0.95), (-2.0, 2.0)],
-                ),
-                n_steps=1200, n_chains=1024, n_burnin=300, seed=7,
-                temperatures=[1.0, 2.0, 4.0],
-            )
-        assert abs(r.values[0]) < 0.02
-        assert abs(r.values[1] - 15.0 / 140.0) < 0.01
-
-    def test_tempered_hmc_table_target_in_kernel(self, integ_p):
-        # Round 5: tempered HMC gradients on CUSTOM table targets are
-        # gathered interpolant slopes — no XLA reroute.
-        import warnings as _w
-
-        b = Distribution.beta(2.0, 5.0)
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            r = integ_p.integrate_mcmc(
-                [lambda v: v], b,
-                HMC(
-                    step_size=0.05, n_leapfrog=5,
-                    init_range=(0.05, 0.95),
-                ),
-                n_steps=1200, n_chains=1024, n_burnin=300, seed=9,
-                temperatures=[1.0, 2.0],
-            )
-        assert abs(r.values[0] - 2.0 / 7.0) < 0.02
 
     def test_adapt_and_hmc_stay_walk_only(self, integ):
         from tpu_montecarlo.ops.mcmc_pt import build_pt_mcmc_fn
@@ -417,178 +336,14 @@ class TestTemperedValidation:
             )
 
 
-class TestTemperedPallasKernel:
-    """The in-kernel tempering tier (ops/mcmc_pt_pallas.py): rung-block
-    replica exchange as elementwise selects, interpret mode on CPU.
-    backend='pallas' must ride the kernel WITHOUT a fallback warning for
-    eligible workloads (warnings escalate to errors here)."""
-
-    @pytest.fixture(scope="class")
-    def integ_p(self):
-        return MonteCarloIntegrator(backend="pallas")
-
-    def _strict(self):
-        import contextlib
-        import warnings
-
-        @contextlib.contextmanager
-        def strict():
-            with warnings.catch_warnings():
-                warnings.simplefilter("error")
-                yield
-
-        return strict()
-
-    def test_joint_fn_multimodal_escape(self, integ_p):
-        with self._strict():
-            pt = integ_p.integrate_mcmc(
-                [lambda x: x, lambda x: x * x], logmix,
-                RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0)),
-                n_steps=400, n_chains=512, n_burnin=200, seed=1,
-                temperatures=LADDER,
-            )
-        assert abs(pt.values[0]) < 1.0
-        assert abs(pt.values[1] - 17.0) < 2.0
-        assert 0.0 < pt.diagnostics["swap_rate"] < 1.0
-        assert 0.0 < pt.acceptance_rate < 1.0
-
-    def test_analytic_target(self, integ_p):
-        with self._strict():
-            pt = integ_p.integrate_mcmc(
-                [lambda x: x, lambda x: x * x],
-                Distribution.normal(1.0, 2.0),
-                RandomWalk(step_size=1.0, adapt=True,
-                           init_range=(-3.0, 5.0)),
-                n_steps=600, n_chains=512, n_burnin=200, seed=2,
-                temperatures=[1.0, 3.0, 9.0],
-            )
-        assert abs(pt.values[0] - 1.0) < 0.25
-        assert abs(pt.values[1] - 5.0) < 1.0
-
-    def test_table_target(self, integ_p):
-        target = Distribution.from_pdf(
-            lambda x: np.exp(-0.5 * (x + 4.0) ** 2)
-            + np.exp(-0.5 * (x - 4.0) ** 2),
-            support=(-9.0, 9.0),
-        )
-        with self._strict():
-            pt = integ_p.integrate_mcmc(
-                [lambda x: x * x], target,
-                RandomWalk(step_size=0.5, adapt=True,
-                           init_range=(3.0, 5.0)),
-                n_steps=400, n_chains=512, n_burnin=200, seed=3,
-                temperatures=LADDER,
-            )
-        assert abs(pt.values[0] - 17.0) < 2.0
-
-    def test_hmc_2d_joint(self, integ_p):
-        def banana(x, y):
-            return -0.5 * (x * x / 4.0 + (y - 0.5 * x * x) ** 2)
-
-        with self._strict():
-            pt = integ_p.integrate_mcmc(
-                [lambda x, y: x, lambda x, y: y], banana,
-                HMC(step_size=0.15, n_leapfrog=5, adapt=True,
-                    init_range=(-2.0, 2.0)),
-                n_steps=300, n_chains=512, n_burnin=200, seed=4,
-                temperatures=[1.0, 2.0, 4.0],
-            )
-        assert abs(pt.values[0]) < 0.4
-
-    def test_swap_rate_matches_xla(self, integ_p):
-        # Same ladder/physics through both implementations: the swap
-        # rates must agree (they estimate the same acceptance integral).
-        kw = dict(
-            n_steps=400, n_chains=512, n_burnin=200, seed=1,
-            temperatures=LADDER,
-        )
-        walk = RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
-        with self._strict():
-            kern = integ_p.integrate_mcmc(
-                [lambda x: x * x], logmix, walk, **kw
-            )
-        xla = MonteCarloIntegrator(backend="xla").integrate_mcmc(
-            [lambda x: x * x], logmix, walk, **kw
-        )
-        assert abs(
-            kern.diagnostics["swap_rate"] - xla.diagnostics["swap_rate"]
-        ) < 0.05
-        assert abs(kern.values[0] - xla.values[0]) < 2.0
-
-    def test_inference_outputs_ride_the_kernel(self, integ_p):
-        # Round 5: cold-rung stderr + split-R-hat run IN-KERNEL (the
-        # plain kernels' pilot-shifted stat blocks on the cold rung) —
-        # no fallback warning, values match the XLA tempering sweep.
-        import warnings as _w
-
-        walk = RandomWalk(step_size=0.5, init_range=(3.0, 5.0))
-        kw = dict(
-            n_steps=400, n_chains=512, n_burnin=100, seed=5,
-            temperatures=[1.0, 2.0, 4.0],
-            return_stderr=True, return_diagnostics=True,
-        )
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            pt = integ_p.integrate_mcmc([lambda x: x], logmix, walk, **kw)
-        ptx = MonteCarloIntegrator(backend="xla").integrate_mcmc(
-            [lambda x: x], logmix, walk, **kw
-        )
-        assert pt.stderr is not None and pt.stderr[0] > 0
-        assert "r_hat" in pt.diagnostics and "swap_rate" in pt.diagnostics
-        assert (
-            abs(pt.diagnostics["swap_rate"] - ptx.diagnostics["swap_rate"])
-            < 0.06
-        )
-        assert abs(pt.values[0] - ptx.values[0]) < max(
-            6 * (pt.stderr[0] + ptx.stderr[0]), 0.5
-        )
-
-    def test_sharded_kernel(self, mesh8):
-        integ = MonteCarloIntegrator(backend="pallas", mesh=mesh8)
-        with self._strict():
-            pt = integ.integrate_mcmc(
-                [lambda x: x, lambda x: x * x], logmix,
-                RandomWalk(step_size=0.5, adapt=True,
-                           init_range=(3.0, 5.0)),
-                n_steps=300, n_chains=1024, n_burnin=150, seed=6,
-                temperatures=[1.0, 2.0, 4.0, 8.0, 16.0],
-            )
-        assert abs(pt.values[0]) < 1.2
-        assert abs(pt.values[1] - 17.0) < 2.5
-
-
 class TestTemperedKernelSamples:
-    """Cold-rung draws ride the PT kernel (round 4): DMA-streamed from
-    the flat rung ensemble's cold block, estimates bit-identical to the
-    samples-free kernel run, no fallback warning."""
+    """Cold-rung draws under backend='pallas': tempered runs have no
+    kernel, so they take the XLA builder (with a warning) and keep the
+    draw surface."""
 
     @pytest.fixture(scope="class")
     def integ_p(self):
         return MonteCarloIntegrator(backend="pallas")
-
-    def test_kernel_draws_bit_equal_and_bimodal(self, integ_p):
-        import warnings
-
-        walk = RandomWalk(step_size=0.5, adapt=True,
-                          init_range=(3.0, 5.0))
-        kw = dict(n_steps=600, n_chains=256, n_burnin=200, seed=15,
-                  temperatures=[1.0, 2.0, 4.0, 8.0, 16.0])
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            pt = integ_p.integrate_mcmc(
-                [lambda x: x], logmix, walk,
-                return_samples=20, **kw
-            )
-        base = integ_p.integrate_mcmc([lambda x: x], logmix, walk, **kw)
-        np.testing.assert_array_equal(base.values, pt.values)
-        assert (
-            base.diagnostics["swap_rate"] == pt.diagnostics["swap_rate"]
-        )
-        s = np.asarray(pt.samples)
-        assert s.shape[0] == 20 and s.ndim == 3  # joint-fn keeps d
-        frac_left = float(np.mean(s < 0.0))
-        assert 0.3 < frac_left < 0.7
-        assert abs(float(np.mean(s * s)) - 17.0) < 2.0
 
     def test_kernel_draws_1d_distribution_target_shape(self, integ_p):
         pt = integ_p.integrate_mcmc(
@@ -668,21 +423,6 @@ class TestTemperedCompile:
             np.testing.assert_allclose(
                 float(np.asarray(sw)[r]), float(s1), rtol=1e-6
             )
-
-    def test_stderr_handle_rides_kernel(self, integ_p):
-        # Round 5: tempered stderr serving handles ride the kernel too
-        # (seed-batched cold-rung stat blocks).
-        import warnings as _w
-
-        walk = RandomWalk(step_size=0.5, init_range=(3.0, 5.0))
-        with _w.catch_warnings():
-            _w.simplefilter("error")
-            prog = integ_p.compile_mcmc(
-                [lambda x: x], logmix, walk,
-                return_stderr=True, **self.KW,
-            )
-            out = prog(3)
-        assert len(out) == 4 and float(out[3][0]) > 0.0
 
     def test_analytic_target_estimates(self, integ_p):
         prog = integ_p.compile_mcmc(

@@ -6,7 +6,7 @@ enumerable value-type slice of that surface, bitwise ops the last
 operator slice.  Matrices are trace-time aggregates of scalar lane
 values (tracing._Mat — columns of _Vec), so matrix-typed locals stay
 Pallas-eligible; bitwise ops run on the front-end's f32-modeled
-integers through int32 conversions (Mosaic-safe — no uint bitcasts).
+integers through int32 conversions (no uint bitcasts).
 
 Dual-render checks: every arithmetic identity is evaluated once through
 the WGSL front-end and once by a numpy float32 oracle on the same
@@ -252,7 +252,7 @@ class TestBitwiseOps:
 
     def test_bitwise_integrand_stays_kernel_eligible(self):
         # An integrand using &/>> runs through int32 conversions only —
-        # Mosaic-safe, so the Pallas backend takes it without fallback.
+        # kernel-safe, so the Pallas backend takes it without fallback.
         import warnings as _w
 
         code = (

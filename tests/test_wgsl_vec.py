@@ -3,7 +3,7 @@ component stores, vector builtins, and control flow carrying vectors.
 
 The reference passes ANY WGSL string through to naga unexamined
 (reference: python/wgpu_montecarlo/__init__.py:738-747), so vector and
-array locals compile there; this suite pins the TPU front-end's coverage
+array locals compile there; this suite pins the front-end's coverage
 of that surface.  Vectors lower to tuples of SCALAR components (pure
 elementwise dataflow, no stacked axes), so the same integrands must also
 run through the Pallas kernel tier — asserted here in interpreter mode.

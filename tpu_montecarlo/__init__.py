@@ -1,11 +1,11 @@
-"""tpu_montecarlo — TPU-native Monte Carlo integration, importance sampling
-and MCMC in JAX/Pallas.
+"""tpu_montecarlo — Monte Carlo integration, importance sampling and MCMC
+in JAX/Pallas, compiled for the GPU.
 
-A ground-up TPU rebuild of the capabilities of wgpu-monte-carlo (Python
+A ground-up JAX rebuild of the capabilities of wgpu-monte-carlo (Python
 user API + Python->WGSL transpiler + wgpu compute engine): user callables
 are traced straight into fused XLA/Pallas kernels, sampling uses
 counter-based random streams, reductions happen on-device, and workloads
-shard across device meshes with psum over ICI.
+shard across device meshes with a final psum.
 
 Example:
     >>> from tpu_montecarlo import MonteCarloIntegrator, Distribution

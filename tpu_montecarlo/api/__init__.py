@@ -28,7 +28,7 @@ from .batching import (
     _target_arity,
 )
 from .cache import _GLOBAL_CACHE, _ProgramCache, _block_traceable
-from .device import _mcmc_table_bytes, _uniform_table_mode
+from .device import _uniform_table_mode
 from .functions import (
     expectation_fn,
     integrate,

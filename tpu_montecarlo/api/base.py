@@ -52,7 +52,6 @@ from .device import (
     _device_log_tables_of,
     _device_mode_tables,
     _device_uniform_log_tables,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -96,51 +95,54 @@ class _BaseMixin:
         return tuple(traced)
 
     def _use_pallas(self, kind: DistKind) -> bool:
+        """Whether a kernel-capable workload takes the Pallas kernels:
+        always under backend='pallas' (compiled on the GPU, interpreted
+        on the CPU test tier, refused elsewhere), and under 'auto' on the
+        GPU, where the kernels measured faster than the XLA builders
+        (PERF.md)."""
         del kind  # per-kind routing happens at the call sites
         if self._backend == "xla":
             return False
-        try:
-            from ..ops import integrate_pallas  # noqa: F401
-        except Exception:
-            if self._backend == "pallas":
-                # An explicitly forced backend must not silently degrade.
-                raise
-            return False
+        from ..ops.integrate_pallas import interpret_mode
+
         if self._backend == "pallas":
+            interpret_mode()  # raises on a platform with no kernel route
             return True
-        return jax.default_backend() == "tpu"
+        return jax.default_backend() == "gpu"
 
-    def _pallas_eligible(
-        self, spec, traced, plan_samples=None, seed_batch: int = 1,
-        with_stderr: bool = False, param_batch: bool = False,
-    ) -> bool:
+    def _no_kernel(self, reason: str, stacklevel: int = 3) -> None:
+        """A forced backend='pallas' on a workload no kernel serves.  On
+        the GPU that is an error: the caller asked for the compiled
+        kernel, and the XLA builder is a different program.  On the CPU
+        test tier it warns and the XLA builder runs."""
+        if self._backend != "pallas":
+            return
+        msg = f"backend='pallas' requested but {reason}"
+        if jax.default_backend() != "cpu":
+            raise ValueError(f"{msg}; use backend='auto' or 'xla'")
+        warnings.warn(
+            f"{msg}; running the XLA backend instead",
+            stacklevel=stacklevel + 1,
+        )
+
+    def _warn_no_kernel(self, what: str) -> None:
+        """Multi-dimensional and tempered workloads have no Pallas kernel
+        (the XLA builders serve them)."""
+        self._no_kernel(f"{what} has no Pallas kernel", stacklevel=4)
+
+    def _pallas_eligible(self, spec, traced) -> bool:
         """Shared Pallas-kernel eligibility gate for the sampling side:
-        kernel-supported family, lane-multiple inverse table (and no
-        exact-inverse requirement — in-kernel searchsorted is not a thing),
-        <=128 fused integrands, none carrying table-lookup closures and all
-        evaluating on a (rows, 128) lane block (functions with
-        sample-dependent ``while`` loops trace as scalar programs but their
-        vector cond cannot lower inside the kernel — those take the XLA
-        sweep, which vmaps them).  Warns when a forced backend='pallas' has
-        to fall back."""
-        from ..ops.integrate_pallas import pallas_supports, pick_block_rows
+        kernel-supported family, <=128 fused integrands, none carrying
+        table-lookup closures and all evaluating on a sample block
+        (functions with sample-dependent ``while`` loops trace as scalar
+        programs but cannot lower inside the kernel — those take the XLA
+        sweep, which vmaps them).  A forced backend='pallas' that fails
+        it goes through ``_no_kernel``."""
+        from ..ops.integrate_pallas import MAX_FUSED, pallas_supports
 
-        gapped = spec.kind == DistKind.CUSTOM and spec.exact_inverse
         ok = (
             pallas_supports(spec.kind)
-            and len(traced) <= 128
-            # a block row count fitting the VMEM budget must exist (high-K
-            # kernels shrink the block instead of routing to XLA; the
-            # budget includes the seed_batch x programs output buffer)
-            and pick_block_rows(
-                len(traced), spec.kind, gapped=gapped,
-                plan_samples=plan_samples,
-                n_dev=1 if self._mesh is None else self._mesh.size,
-                seed_batch=seed_batch,
-                with_stderr=with_stderr,
-                param_batch=param_batch,
-            )
-            is not None
+            and len(traced) <= MAX_FUSED
             and not any(
                 getattr(f, "__tpu_mc_no_pallas__", False) for f in traced
             )
@@ -160,14 +162,11 @@ class _BaseMixin:
                 )
             )
         )
-        if not ok and self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this workload is not "
-                "Pallas-eligible (table-lookup closure, a function that "
-                "does not evaluate on a lane block, too many fused "
-                "integrands for the kernel VMEM budget, or an "
-                "incompatible table layout); running the XLA backend "
-                "instead",
-                stacklevel=3,
+        if not ok:
+            self._no_kernel(
+                "this workload is not Pallas-eligible (table-lookup "
+                "closure, a function that does not evaluate on a sample "
+                "block, too many fused integrands, or an incompatible "
+                "table layout)"
             )
         return ok

@@ -72,16 +72,16 @@ def _tag_native_batch(run, seed_batch: int, param_batch: bool = False):
             return run(*args)
 
         _set_tags(tagged)
-        for attr in ("actual_samples", "block_rows"):
+        for attr in ("actual_samples", "strata"):
             if hasattr(run, attr):
                 setattr(tagged, attr, getattr(run, attr))
         return tagged
 
 
 def _block_traceable(fns, n_args: int = 1) -> bool:
-    """True when every function evaluates on (8, 128) float32 lane blocks
-    (one per argument) with a block-broadcastable result — the shape the
-    Pallas kernels feed integrands.  A scalar trace alone does not
+    """True when every function evaluates on (8, 128) float32 blocks (one
+    per argument) with a block-broadcastable result — a stand-in for the
+    sample vectors the Pallas kernels feed integrands.  A scalar trace alone does not
     guarantee this: a sample-dependent ``while`` becomes a
     ``lax.while_loop`` whose cond is a bool block, which cannot lower
     inside a kernel (the XLA backend vmaps such functions instead, keeping

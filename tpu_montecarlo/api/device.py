@@ -1,6 +1,5 @@
 """Device staging: per-Distribution caches of device-resident parameter
-words, inverse-CDF / pdf / log-pdf tables, and the table-byte
-accounting the kernel VMEM gates consume."""
+words and inverse-CDF / pdf / log-pdf tables."""
 
 from __future__ import annotations
 
@@ -20,8 +19,7 @@ _DEVICE_DUMMY = None
 
 
 def _tbl(arr):
-    # Device transfers through a tunnelled backend cost a full round-trip;
-    # the shared dummy is uploaded exactly once per process.
+    # The shared dummy is uploaded once per process.
     global _DEVICE_DUMMY
     if arr is None:
         if _DEVICE_DUMMY is None:
@@ -48,16 +46,13 @@ def _mcmc_prop_inverse(distribution, spec):
     """Error-bounded DOWNSAMPLED inverse-CDF table for the MCMC kernels'
     i.i.d. proposal draws (sampler-mode logq paths only, non-gapped).
 
-    The in-kernel lookup scans one lane-gather pair per 128-entry
-    segment, so a 4096-entry table costs 32 segment iterations PER MH
-    STEP — measured as the dominant term of table-proposal chains.
-    Under sampler-mode logq the MH acceptance uses the sampler's own
-    exact density (mcmc_pallas._sample_chain_block), so the chain stays
+    A smaller table stays in cache for the per-step lookups.  Under
+    sampler-mode logq the MH acceptance uses the sampler's own
+    exact density (mcmc_pallas._Chains.propose), so the chain stays
     exactly invariant for the target at ANY inverse resolution — a
     coarser table only makes the proposal a slightly coarser
     approximation of the requested distribution.  The resolution is the
-    smallest power-of-two u-grid (floor 256 entries — two segments;
-    sizes stay lane multiples for the kernel layout) whose resampled
+    smallest power-of-two u-grid (floor 256 entries) whose resampled
     inverse stays within 2e-4 * span WASSERSTEIN-1 distance of the full
     table's sampler (W1 between two inverse-CDF samplers is exactly
     the mean |x_c(u) - x(u)| over uniform u) — a mass-aware bound: a
@@ -97,9 +92,9 @@ def _device_gapped_tables(
     (exact_inverse) custom distributions, cached per Distribution.
 
     ``stratified=True``: (segments, 128) (value, slope) tables for the
-    stratified integrate sampler (``segments`` matches the kernel's
-    block_rows // 8); ``False``: flat m-knot tables for the MCMC
-    proposal's i.i.d. segment lane-gather lookup.  Both jump each gap
+    stratified integrate sampler (``segments`` is the kernel's
+    ``run.strata``); ``False``: flat m-knot tables for the MCMC
+    proposal's i.i.d. indexed lookup.  Both jump each gap
     exactly at a knot so the device never emits a sample inside a gap
     (the semantics of the reference's knot-exact binary search,
     src/distribution.rs:128-158)."""
@@ -232,8 +227,7 @@ def _proposal_kernel_log_tables(distribution):
 def _device_uniform_log_tables(distribution, role: str = "target"):
     """Device-resident uniform-grid log tables for the Pallas MCMC kernel
     (resampled to a uniform grid if needed, then error-bounded DOWNSAMPLED:
-    the in-kernel lookup scans one lane-gather per 128-knot segment, so a
-    512-knot table is 4x cheaper per log-pdf eval than 2048).  Proposal
+    smaller tables stay cache-resident for the per-step lookups).  Proposal
     tables go through the fidelity pipeline of
     ``_proposal_kernel_log_tables`` — their values must match the
     sampling density everywhere the sampler emits."""
@@ -303,9 +297,8 @@ def _uniform_table_mode(distribution, mode, role: str = "target"):
 def _device_mode_tables(distribution, mode, role: str = "target"):
     """Device-resident (x_grid, pdf_values) for an in-kernel IS weight
     table, cached per Distribution.  Error-bounded DOWNSAMPLED first: the
-    kernel's lookup scans one lane-gather per 128-knot segment, so weight
-    evals get cheaper linearly in table size (the XLA closure path keeps
-    the full-resolution tables).  Proposal (denominator) tables use the
+    smaller tables stay cache-resident for the in-kernel weight lookups
+    (the XLA closure path keeps the full-resolution tables).  Proposal (denominator) tables use the
     relative bound — see tables.downsample_pdf_table."""
     attr = (
         "_device_pdf_tables_u"
@@ -330,69 +323,3 @@ def _table_shapes(spec):
         None if spec.cdf_table is None else spec.cdf_table.shape,
         spec.exact_inverse,
     )
-
-
-
-def _mcmc_table_bytes(
-    prop_spec, targ_spec, target_distribution, proposal_distribution
-) -> int:
-    """Bytes of VMEM-resident custom tables the MCMC kernel would keep:
-    the proposal inverse-CDF (value, slope) pair plus the 128-padded
-    (values, dx) log-pdf tables for each CUSTOM role.  Feeds the
-    mcmc_vmem_fits routing gate so an incompressible giant user table
-    falls back to XLA instead of compile-OOMing the kernel.
-    ``prop_spec`` is None for random-walk proposals (no tables)."""
-
-    def _padded(n: int) -> int:
-        return -(-int(n) // 128) * 128
-
-    total = 0
-    if prop_spec is not None and prop_spec.kind == DistKind.CUSTOM:
-        if prop_spec.exact_inverse:
-            from ..tables import INV_CDF_TABLE_SIZE
-
-            total += 2 * INV_CDF_TABLE_SIZE * 4
-        elif prop_spec.x_table is not None:
-            total += 2 * int(prop_spec.x_table.shape[0]) * 4
-        t = _proposal_kernel_log_tables(proposal_distribution)
-        if t is not None:
-            total += 2 * _padded(len(t[0])) * 4
-    if targ_spec.kind == DistKind.CUSTOM:
-        t = _uniform_log_tables(target_distribution)
-        if t is not None:
-            total += 2 * _padded(len(t[0])) * 4
-    return total
-
-
-def _mcmc_nd_table_bytes(prop_specs, targ_specs, targets, proposals) -> int:
-    """nd form of :func:`_mcmc_table_bytes`: sum the per-dimension
-    CUSTOM-table residency over all dims (proposal inverse-CDF pairs +
-    guarded q log tables; target log tables).  ``prop_specs`` is None
-    for RandomWalk/HMC proposals; ``targ_specs`` is None for joint-fn
-    targets."""
-
-    def _padded(n: int) -> int:
-        return -(-int(n) // 128) * 128
-
-    total = 0
-    if prop_specs is not None:
-        for p, s in zip(proposals, prop_specs):
-            if s.kind != DistKind.CUSTOM:
-                continue
-            if s.exact_inverse:
-                from ..tables import INV_CDF_TABLE_SIZE
-
-                total += 2 * INV_CDF_TABLE_SIZE * 4
-            elif s.x_table is not None:
-                total += 2 * int(s.x_table.shape[0]) * 4
-            t = _proposal_kernel_log_tables(p)
-            if t is not None:
-                total += 2 * _padded(len(t[0])) * 4
-    if targ_specs is not None:
-        for t_dist, s in zip(targets, targ_specs):
-            if s.kind != DistKind.CUSTOM:
-                continue
-            t = _uniform_log_tables(t_dist)
-            if t is not None:
-                total += 2 * _padded(len(t[0])) * 4
-    return total

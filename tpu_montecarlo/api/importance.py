@@ -5,7 +5,6 @@ the 1-D / nd IS entry points."""
 from __future__ import annotations
 
 import hashlib
-import warnings
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -53,7 +52,6 @@ from .device import (
     _device_log_tables_of,
     _device_mode_tables,
     _device_uniform_log_tables,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -234,8 +232,8 @@ class _ImportanceMixin:
 
         Both PDFs traceable -> closed-form weight folded into each integrand
         (the weighted closures lower into the Pallas kernel as-is).  Any
-        table PDF -> in-kernel uniform-grid table weights on TPU when
-        eligible, else the XLA sweep with interpolating closures.
+        table PDF -> in-kernel uniform-grid table weights on the GPU
+        kernel when eligible, else the XLA sweep with interpolating closures.
         """
         if len(functions) == 0:
             raise ValueError("At least one function is required")
@@ -263,10 +261,7 @@ class _ImportanceMixin:
             plan = make_integrate_plan(
                 n_samples, self._target_threads, n_dev=n_dev
             )
-            pallas_ok = self._pallas_eligible(
-                spec, traced,
-                plan_samples=plan.actual_samples, seed_batch=seed_batch,
-            )
+            pallas_ok = self._pallas_eligible(spec, traced)
             was_eligible = pallas_ok
             # Table PDFs need uniform x-grids for in-kernel lookup —
             # irregular user grids are resampled host-side (error-bounded)
@@ -304,42 +299,15 @@ class _ImportanceMixin:
                     pallas_ok = False
                 elif mode[0] not in ("table", "sampler"):
                     pallas_ok = _block_traceable((mode[1],))
-            if pallas_ok:
-                # Re-check the kernel VMEM budget with the IS extras: the
-                # resident weight tables plus the p/q/weight value blocks
-                # that live alongside every eval.
-                from ..ops.integrate_pallas import pick_block_rows
-
-                n_wt = sum(
-                    1 for m in (p_mode_k, q_mode_k) if m[0] == "table"
-                )
-                pallas_ok = (
-                    pick_block_rows(
-                        len(traced), spec.kind,
-                        n_weight_tables=n_wt,
-                        extra_blocks=3 + int(q_mode_k[0] == "sampler"),
-                        gapped=spec.kind == DistKind.CUSTOM
-                        and spec.exact_inverse,
-                        plan_samples=plan.actual_samples,
-                        n_dev=n_dev,
-                        seed_batch=seed_batch,
-                        with_stderr=with_stderr,
-                    )
-                    is not None
-                )
-            if was_eligible and not pallas_ok and self._backend == "pallas":
-                warnings.warn(
-                    "backend='pallas' requested but an IS weight PDF is not "
-                    "kernel-eligible (a table x-grid too irregular to "
-                    "resample within error bounds, or a PDF that does not "
-                    "evaluate on a lane block); running the XLA backend "
-                    "instead",
-                    stacklevel=3,
+            if was_eligible and not pallas_ok:
+                self._no_kernel(
+                    "an IS weight PDF is not kernel-eligible (a table "
+                    "x-grid too irregular to resample within error "
+                    "bounds, or a PDF that does not evaluate on a lane "
+                    "block)"
                 )
 
         if pallas_ok:
-            interpret = jax.default_backend() != "tpu"
-
             def mode_arg(mode):
                 if mode[0] in ("table", "sampler"):
                     return mode[0]
@@ -370,7 +338,6 @@ class _ImportanceMixin:
                 mode_key(p_mode_k, target_distribution),
                 mode_key(q_mode_k, proposal_distribution),
                 _mesh_key(mesh),
-                interpret,
                 gapped,
                 seed_batch,
                 method,
@@ -384,7 +351,6 @@ class _ImportanceMixin:
                         spec.kind,
                         plan,
                         mesh=mesh,
-                        interpret=interpret,
                         is_weight=(mode_arg(p_mode_k), mode_arg(q_mode_k)),
                         gapped_tables=gapped,
                         seed_batch=seed_batch,
@@ -397,7 +363,7 @@ class _ImportanceMixin:
             if gapped:
                 ts, dts = _device_gapped_tables(
                     proposal_distribution, spec, stratified=True,
-                    segments=run.block_rows // 8,
+                    segments=run.strata,
                 )
                 dev_args = [
                     _device_args_of(proposal_distribution, spec)[0], ts, dts,
@@ -556,12 +522,6 @@ class _ImportanceMixin:
                     f"method={method!r})"
                 )
             traced = traced + (_unit_integrand(d),)
-        res = self._try_is_nd_kernel(
-            functions, traced, targets, proposals, n_samples, seed,
-            method, return_stderr, return_diagnostics,
-        )
-        if res is not None:
-            return res
         p_evals = [self._pdf_evaluator(t) for t in targets]
         q_evals = [self._pdf_evaluator(q) for q in proposals]
         weighted = self._weighted_fns_nd(traced, p_evals, q_evals)
@@ -580,150 +540,4 @@ class _ImportanceMixin:
             n_functions=len(functions),
             stderr=s[:-1] if return_stderr else None,
             diagnostics=_weight_diagnostics(v[-1], s[-1], n_samples),
-        )
-
-    def _try_is_nd_kernel(
-        self, functions, traced, targets, proposals, n_samples, seed,
-        method, return_stderr, return_diagnostics,
-    ) -> Optional[IntegrationResult]:
-        """Structured nd IS weights on the fused kernel (round 4): each
-        dimension's weight factor rides as a per-dim descriptor instead
-        of a folded lookup closure — traced p/q closures, uniform-grid
-        p tables, and SAMPLER-mode q for CUSTOM proposal dims (the
-        denominator is the dim's own sampling density, so irregular
-        learned tables stay in-kernel; ops/integrate_nd_pallas.py).
-        Returns None when any dimension's weight cannot ride the kernel
-        — the caller then folds closures and takes the XLA sweep."""
-        d = len(targets)
-        specs = [dist_spec_of(q) for q in proposals]
-        kinds = tuple(s.kind for s in specs)
-        if not self._use_pallas(kinds[0]):
-            return None
-        if method == "qmc" and (return_stderr or return_diagnostics):
-            # rQMC error bars run R rotated programs at the api layer;
-            # keep that path (the folded-closure route handles it).
-            return None
-
-        is_weight_nd = []
-        weight_tables = []
-        wt_key = []
-        for j in range(d):
-            p_mode = self._pdf_mode(targets[j])
-            if p_mode[0] == "traced":
-                if not _block_traceable((p_mode[1],)):
-                    return None
-                p_arg = p_mode[1]
-                wt_key.append(("p_fn", _fn_key(p_arg)))
-            else:
-                p_mode_k = _uniform_table_mode(targets[j], p_mode)
-                if p_mode_k is None:
-                    return None
-                p_arg = "table"
-                weight_tables += list(
-                    _device_mode_tables(targets[j], p_mode_k)
-                )
-                wt_key.append(
-                    (
-                        "p_table",
-                        hashlib.sha1(
-                            np.ascontiguousarray(p_mode_k[1])
-                        ).hexdigest(),
-                        hashlib.sha1(
-                            np.ascontiguousarray(p_mode_k[2])
-                        ).hexdigest(),
-                    )
-                )
-            if kinds[j] == DistKind.CUSTOM:
-                # Sampler-mode q: the dim's own (normalized) sampling
-                # density.  Gapped tables route XLA (their sampler uses
-                # the gap-snapped value/slope pair, not this layout).
-                s = specs[j]
-                if s.exact_inverse or s.x_table is None:
-                    return None
-                q_arg = "sampler"
-                wt_key.append(("q_sampler",))
-            else:
-                q_mode = self._pdf_mode(proposals[j])
-                if q_mode[0] != "traced" or not _block_traceable(
-                    (q_mode[1],)
-                ):
-                    return None
-                q_arg = q_mode[1]
-                wt_key.append(("q_fn", _fn_key(q_arg)))
-            is_weight_nd.append((p_arg, q_arg))
-
-        mesh = self._mesh
-        n_dev = 1 if mesh is None else mesh.size
-        plan = make_integrate_plan(
-            n_samples, self._target_threads, n_dev=n_dev
-        )
-        with_stderr = bool(return_stderr or return_diagnostics)
-        n_wt = sum(1 for p, _ in is_weight_nd if p == "table")
-        strat_sampler = False
-        from ..ops.integrate_nd_pallas import _strat_dim
-
-        sdim = _strat_dim(kinds, method)
-        strat_sampler = sdim >= 0 and is_weight_nd[sdim][1] == "sampler"
-        if not self._nd_pallas_eligible(
-            specs, traced, plan.actual_samples, with_stderr, method,
-            n_weight_tables=n_wt,
-            weight_extra=3 + int(strat_sampler),
-            quiet=True,
-        ):
-            return None
-
-        from ..ops.integrate_nd_pallas import build_integrate_nd_pallas
-
-        table_sizes = tuple(
-            int(s.x_table.shape[0]) if s.kind == DistKind.CUSTOM else 0
-            for s in specs
-        )
-        interpret = jax.default_backend() != "tpu"
-        key = (
-            "is_nd_pallas",
-            _fns_key(traced),
-            kinds,
-            table_sizes,
-            plan,
-            tuple(wt_key),
-            _mesh_key(mesh),
-            interpret,
-            method,
-            with_stderr,
-        )
-        kern = self._cache.get_or_build(
-            key,
-            lambda: build_integrate_nd_pallas(
-                traced, kinds, plan, mesh=mesh, interpret=interpret,
-                method=method, with_stderr=with_stderr,
-                table_sizes=table_sizes,
-                is_weight_nd=tuple(is_weight_nd),
-            ),
-        )
-        per = [_device_args_of(q, s) for q, s in zip(proposals, specs)]
-        params_t = tuple(p[0] for p in per)
-        xt_t = tuple(p[1] for p in per)
-        out = kern(
-            np.uint32(seed), jnp.stack(params_t), xt_t,
-            tuple(weight_tables),
-        )
-        if with_stderr:
-            values, stderr = out
-        else:
-            values, stderr = out, None
-        v = np.asarray(values, np.float64)
-        s_arr = (
-            None if stderr is None else np.asarray(stderr, np.float64)
-        )
-        if not return_diagnostics:
-            return IntegrationResult(
-                values=v, n_samples=n_samples,
-                n_functions=len(functions),
-                stderr=s_arr if return_stderr else None,
-            )
-        return IntegrationResult(
-            values=v[:-1], n_samples=n_samples,
-            n_functions=len(functions),
-            stderr=s_arr[:-1] if return_stderr else None,
-            diagnostics=_weight_diagnostics(v[-1], s_arr[-1], n_samples),
         )

@@ -6,7 +6,6 @@ driver)."""
 from __future__ import annotations
 
 import hashlib
-import warnings
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -54,7 +53,6 @@ from .device import (
     _device_log_tables_of,
     _device_mode_tables,
     _device_uniform_log_tables,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -237,6 +235,10 @@ class _IntegrateMixin:
         row per rep).  Serving a whole parameter sweep WITH per-job
         error bars costs one dispatch.
 
+        One-dimensional handles carry ``actual_samples``: the samples
+        each integration draws (``n_samples`` rounded up to the plan's,
+        or the kernel grid's, whole blocks).
+
         ``distribution`` may be a SEQUENCE of per-dimension Distributions
         (d-ary functions): the handle serves the multi-dimensional
         integrate family, with ``seed_batch`` riding the nd kernel's
@@ -265,20 +267,15 @@ class _IntegrateMixin:
                         kinds.append(kk)
                     run, dev_args = self._nd_program(
                         traced, dists, n_samples, method,
-                        with_stderr=return_stderr, seed_batch=seed_batch,
-                        param_batch=True,
+                        with_stderr=return_stderr,
                     )
-                    if (
-                        getattr(run, "__native_param_batch__", 0)
-                        != seed_batch
-                    ):
-                        run = _nd_param_map_adapter(run, d)
+                    run = _nd_param_map_adapter(run, d)
                     return _nd_param_prog(
                         run, dev_args, seed_batch, d, tuple(kinds)
                     )
                 run, dev_args = self._nd_program(
                     traced, dists, n_samples, method,
-                    with_stderr=return_stderr, seed_batch=seed_batch,
+                    with_stderr=return_stderr,
                 )
                 return self._finalize_prog(
                     run, dev_args, seed_batch, n_param_args=0
@@ -293,10 +290,18 @@ class _IntegrateMixin:
             method=method, param_batch=param_batch,
             with_stderr=return_stderr,
         )
-        return self._finalize_prog(
+        prog = self._finalize_prog(
             run, dev_args, seed_batch, param_batch=param_batch,
             param_kinds=(spec.kind,),
         )
+        n_dev = 1 if self._mesh is None else self._mesh.size
+        prog.actual_samples = getattr(
+            run, "actual_samples",
+            make_integrate_plan(
+                n_samples, self._target_threads, n_dev=n_dev
+            ).actual_samples,
+        )
+        return prog
 
     def expectation_fn(
         self,
@@ -326,16 +331,14 @@ class _IntegrateMixin:
         through host-built tables whose construction is not traced.
         ``distribution`` supplies the family and default packing shape.
         """
-        if self._backend == "pallas":
-            # The forced-backend no-silent-degrade convention: AD needs
-            # the pure-JAX sweep — the Pallas kernels (hardware PRNG,
-            # Mosaic) have no gradient path.
-            warnings.warn(
-                "backend='pallas' requested but expectation_fn always "
-                "runs the XLA sweep (the differentiable path); the "
-                "Pallas kernels cannot be differentiated",
-                stacklevel=2,
-            )
+        # AD needs the pure-JAX sweep: the Pallas kernels have no
+        # gradient path.
+        self._no_kernel(
+            "expectation_fn always runs the XLA sweep (the "
+            "differentiable path); the Pallas kernels cannot be "
+            "differentiated",
+            stacklevel=2,
+        )
         if isinstance(distribution, (list, tuple)):
             dists = list(distribution)
             if not dists or not all(
@@ -357,10 +360,8 @@ class _IntegrateMixin:
                 traced_nd = self._trace_user_functions(
                     functions, n_args=d
                 )
-                # Always the XLA nd sweep: AD traverses it; the nd
-                # kernel (hardware PRNG, Mosaic) has no gradient path.
                 run_nd, dev_args_nd = self._nd_program(
-                    traced_nd, dists, n_samples, method, force_xla=True
+                    traced_nd, dists, n_samples, method, warn=False
                 )
                 _, xt_t, ct_t = dev_args_nd
 
@@ -491,7 +492,7 @@ class _IntegrateMixin:
                 raise ValueError("seed_batch must be >= 1")
             if getattr(run, "__native_param_batch__", 0) == seed_batch:
                 # Pallas path: params ride the kernel's batch grid
-                # dimension (one SMEM row per rep).
+                # dimension (one params row per rep).
                 return _checked_batch_prog(
                     lambda seeds_arr, params_arrs, rest: run(
                         seeds_arr, *params_arrs, *rest
@@ -731,77 +732,9 @@ class _IntegrateMixin:
             values=out, n_samples=n_samples, n_functions=len(functions)
         )
 
-    def _nd_pallas_eligible(
-        self, specs, traced, plan_samples, with_stderr, method,
-        n_weight_tables: int = 0, weight_extra: int = 0,
-        quiet: bool = False,
-    ) -> bool:
-        """nd kernel gate: analytic or plain-table dims (gap-respecting
-        exact_inverse customs route to XLA), <=128 fused d-ary integrands
-        that evaluate on lane blocks, and a block row count fitting the
-        VMEM budget with d sample blocks + resident tables in flight."""
-        from ..ops.integrate_nd_pallas import (
-            _strat_dim,
-            nd_pallas_supports,
-            pick_nd_rows,
-        )
-
-        kinds = tuple(s.kind for s in specs)
-        d = len(kinds)
-        sdim = _strat_dim(kinds, method)
-        tables_ok = True
-        table_sizes = []
-        for j, s in enumerate(specs):
-            if s.kind != DistKind.CUSTOM:
-                table_sizes.append(0)
-                continue
-            if (
-                s.exact_inverse
-                or s.x_table is None
-                or s.x_table.shape[0] < 2
-            ):
-                tables_ok = False
-                table_sizes.append(0)
-                continue
-            m = int(s.x_table.shape[0])
-            table_sizes.append(m)
-            if j != sdim and m % 128 != 0:
-                # Full-inverse dims use the segment lane-gather layout.
-                tables_ok = False
-        ok = (
-            nd_pallas_supports(kinds)
-            and tables_ok
-            and len(traced) <= 128
-            and pick_nd_rows(
-                len(traced), d, plan_samples,
-                n_dev=1 if self._mesh is None else self._mesh.size,
-                with_stderr=with_stderr,
-                kinds=kinds, table_sizes=tuple(table_sizes),
-                method=method,
-                n_weight_tables=n_weight_tables,
-                weight_extra=weight_extra,
-            )
-            is not None
-            and not any(
-                getattr(f, "__tpu_mc_no_pallas__", False) for f in traced
-            )
-            and _block_traceable(traced, n_args=d)
-        )
-        if not ok and not quiet and self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this nd workload is not "
-                "kernel-eligible (gap-respecting or incompatible table "
-                "dimension, a function that does not evaluate on lane "
-                "blocks, or over the VMEM budget); running the XLA "
-                "backend instead",
-                stacklevel=3,
-            )
-        return ok
-
     def _nd_program(
         self, traced, dists, n_samples, method, with_stderr: bool = False,
-        force_xla: bool = False, seed_batch: int = 1,
-        param_batch: bool = False,
+        warn: bool = True,
     ):
         from ..ops.integrate_nd import build_integrate_nd_fn
 
@@ -813,73 +746,8 @@ class _IntegrateMixin:
         )
         kinds = tuple(s.kind for s in specs)
         exact_inverses = tuple(s.exact_inverse for s in specs)
-
-        if (
-            not force_xla
-            and self._use_pallas(kinds[0])
-            and self._nd_pallas_eligible(
-                specs, traced, plan.actual_samples, with_stderr, method
-            )
-        ):
-            from ..ops.integrate_nd_pallas import build_integrate_nd_pallas
-
-            table_sizes = tuple(
-                int(s.x_table.shape[0]) if s.kind == DistKind.CUSTOM else 0
-                for s in specs
-            )
-            interpret = jax.default_backend() != "tpu"
-            key = (
-                "integrate_nd_pallas",
-                _fns_key(traced),
-                kinds,
-                table_sizes,
-                plan,
-                _mesh_key(mesh),
-                interpret,
-                method,
-                with_stderr,
-                seed_batch,
-                param_batch,
-            )
-            kern = self._cache.get_or_build(
-                key,
-                lambda: build_integrate_nd_pallas(
-                    traced, kinds, plan, mesh=mesh, interpret=interpret,
-                    method=method, with_stderr=with_stderr,
-                    table_sizes=table_sizes, seed_batch=seed_batch,
-                    param_batch=param_batch,
-                ),
-            )
-
-            if param_batch:
-                # Handle shape (seeds, (R, d, 2) params): compile-time
-                # dists supply only the families; params are runtime.
-                def run_kernel(seed, params, xt_t, ct_t):
-                    del xt_t, ct_t
-                    return kern(seed, params)
-            else:
-
-                def run_kernel(seed, params_t, xt_t, ct_t):
-                    # Same call convention as the XLA nd program;
-                    # analytic dims' (dummy) tables ride along unused,
-                    # custom dims' uniform-u inverse tables prep inside
-                    # the jitted kernel wrapper.
-                    del ct_t
-                    return kern(seed, jnp.stack(params_t), xt_t)
-
-            run_kernel = _tag_native_batch(
-                run_kernel, seed_batch, param_batch=param_batch
-            )
-
-            per = [
-                _device_args_of(dd, s) for dd, s in zip(dists, specs)
-            ]
-            dev_args = (
-                tuple(p[0] for p in per),
-                tuple(p[1] for p in per),
-                tuple(p[2] for p in per),
-            )
-            return run_kernel, dev_args
+        if warn:
+            self._warn_no_kernel("multi-dimensional integration")
         key = (
             "integrate_nd",
             _fns_key(traced),
@@ -922,8 +790,10 @@ class _IntegrateMixin:
         mesh = self._mesh
         n_dev = 1 if mesh is None else mesh.size
 
+        from ..ops.integrate_pallas import MAX_FUSED
+
         if (
-            len(traced) > 128
+            len(traced) > MAX_FUSED
             and not param_batch
             and self._use_pallas(spec.kind)
         ):
@@ -935,25 +805,12 @@ class _IntegrateMixin:
                 return multi
 
         if self._use_pallas(spec.kind):
-            from ..ops.integrate_pallas import (
-                build_integrate_fn_pallas,
-                pallas_supports,
-            )
+            from ..ops.integrate_pallas import build_integrate_fn_pallas
 
             plan = make_integrate_plan(
                 n_samples, self._target_threads, n_dev=n_dev
             )
-            # Error-bar runs stay on the kernel path too: the kernel
-            # carries pilot-shifted sum-of-squares accumulators (the
-            # VMEM gate accounts for the doubled blocks).
-            if self._pallas_eligible(
-                spec, traced,
-                plan_samples=plan.actual_samples, seed_batch=seed_batch,
-                with_stderr=with_stderr, param_batch=param_batch,
-            ):
-                # Off-TPU a forced pallas backend runs in the interpreter
-                # (kernel-logic validation; the compiled path needs Mosaic).
-                interpret = jax.default_backend() != "tpu"
+            if self._pallas_eligible(spec, traced):
                 gapped = spec.kind == DistKind.CUSTOM and spec.exact_inverse
                 key = (
                     "integrate_pallas",
@@ -962,7 +819,6 @@ class _IntegrateMixin:
                     plan,
                     _table_shapes(spec),
                     _mesh_key(mesh),
-                    interpret,
                     gapped,
                     seed_batch,
                     method,
@@ -974,7 +830,7 @@ class _IntegrateMixin:
                     lambda: _tag_native_batch(
                         build_integrate_fn_pallas(
                             traced, spec.kind, plan, mesh=mesh,
-                            interpret=interpret, gapped_tables=gapped,
+                            gapped_tables=gapped,
                             seed_batch=seed_batch, method=method,
                             param_batch=param_batch,
                             with_stderr=with_stderr,
@@ -987,7 +843,7 @@ class _IntegrateMixin:
                     params_dev = _device_args_of(distribution, spec)[0]
                     ts, dts = _device_gapped_tables(
                         distribution, spec, stratified=True,
-                        segments=run.block_rows // 8,
+                        segments=run.strata,
                     )
                     return run, (params_dev, ts, dts)
                 return run, _device_args_of(distribution, spec)
@@ -1002,19 +858,19 @@ class _IntegrateMixin:
         self, traced, distribution, spec, n_samples, method,
         seed_batch: int = 1, with_stderr: bool = False,
     ):
-        """K > 128 fused workloads: chain ceil(K/128) kernel passes over
-        IDENTICAL sample streams — each pass re-generates the same
+        """K > MAX_FUSED workloads: chain ceil(K / MAX_FUSED) kernel passes
+        over IDENTICAL sample streams — each pass re-generates the same
         counter-keyed stream (same seed words, same grid, same pinned
-        block rows), so all K integrands still share samples.  This is
-        the reference's any-K accumulator semantics
-        (src/shader_gen.rs:264-282) without the ~500x XLA table-sampling
-        cliff beyond the kernel's 128-lane output row.  Regenerating
-        samples costs ~1 sampler eval per pass — a few percent of a
-        128-integrand pass's work.  Returns (run, dev_args), or None
-        when the passes cannot ride the kernel (callers fall to XLA)."""
+        block), so all K integrands still share samples.  This is the
+        reference's any-K accumulator semantics
+        (src/shader_gen.rs:264-282) with each pass's accumulators kept
+        within the kernel's register budget.  Returns (run, dev_args), or
+        None when the passes cannot ride the kernel (callers fall to
+        XLA)."""
         from ..ops.integrate_pallas import (
+            MAX_FUSED,
             build_integrate_fn_pallas,
-            pick_block_rows,
+            pick_block,
         )
 
         mesh = self._mesh
@@ -1022,27 +878,17 @@ class _IntegrateMixin:
         plan = make_integrate_plan(
             n_samples, self._target_threads, n_dev=n_dev
         )
-        n_groups = -(-len(traced) // 128)
+        n_groups = -(-len(traced) // MAX_FUSED)
         gsize = -(-len(traced) // n_groups)
         groups = [
             tuple(traced[i : i + gsize])
             for i in range(0, len(traced), gsize)
         ]
         gapped = spec.kind == DistKind.CUSTOM and spec.exact_inverse
-        rows = pick_block_rows(
-            gsize, spec.kind, gapped=gapped,
-            plan_samples=plan.actual_samples, n_dev=n_dev,
-            seed_batch=seed_batch, with_stderr=with_stderr,
-        )
-        if rows is None:
-            return None
+        block = pick_block(gsize, with_stderr)
         for g in groups:
-            if not self._pallas_eligible(
-                spec, g, plan_samples=plan.actual_samples,
-                seed_batch=seed_batch, with_stderr=with_stderr,
-            ):
+            if not self._pallas_eligible(spec, g):
                 return None
-        interpret = jax.default_backend() != "tpu"
         runs = []
         for g in groups:
             key = (
@@ -1052,21 +898,20 @@ class _IntegrateMixin:
                 plan,
                 _table_shapes(spec),
                 _mesh_key(mesh),
-                interpret,
                 gapped,
                 seed_batch,
                 method,
                 False,
                 with_stderr,
-                ("rows", rows),
+                ("block", block),
             )
             runs.append(
                 self._cache.get_or_build(
                     key,
                     lambda g=g: build_integrate_fn_pallas(
                         g, spec.kind, plan, mesh=mesh,
-                        interpret=interpret, gapped_tables=gapped,
-                        method=method, block_rows=rows,
+                        gapped_tables=gapped,
+                        method=method, block=block,
                         seed_batch=seed_batch, with_stderr=with_stderr,
                     ),
                 )
@@ -1074,7 +919,8 @@ class _IntegrateMixin:
         if gapped:
             params_dev = _device_args_of(distribution, spec)[0]
             ts, dts = _device_gapped_tables(
-                distribution, spec, stratified=True, segments=rows // 8
+                distribution, spec, stratified=True,
+                segments=runs[0].strata,
             )
             dev_args = (params_dev, ts, dts)
         else:
@@ -1094,6 +940,6 @@ class _IntegrateMixin:
             return jnp.concatenate(outs, axis=cat_axis)
 
         run_multi.actual_samples = runs[0].actual_samples
-        run_multi.block_rows = rows
+        run_multi.strata = runs[0].strata
         run_multi = _tag_native_batch(run_multi, seed_batch)
         return run_multi, dev_args

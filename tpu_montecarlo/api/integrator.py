@@ -21,7 +21,7 @@ class MonteCarloIntegrator(
     _McmcNdMixin,
     _PtMixin,
 ):
-    """TPU-accelerated Monte Carlo integrator for expected values.
+    """GPU-accelerated Monte Carlo integrator for expected values.
 
     Fuses K integrands into a single compiled pass over shared samples
     (E[f_1(X)] … E[f_K(X)] in one sweep), with native device sampling for
@@ -31,11 +31,13 @@ class MonteCarloIntegrator(
         target_threads: lane-width knob, kept from the reference API
             (default 65,536; reference src/engine.rs:164).  For MCMC it
             overrides ``n_chains`` (reference quirk, src/engine.rs:860).
-        backend: "auto" | "xla" | "pallas".  "auto" picks the fused Pallas
-            kernels on TPU where available and the XLA sweep elsewhere.
+        backend: "auto" | "xla" | "pallas".  "auto" picks the fused
+            Pallas-Triton kernels on the GPU where available and the XLA
+            builders elsewhere; "pallas" forces the kernels (interpreted
+            on the CPU, refused on other platforms).
         mesh: None (single device), "auto" (1-D mesh over all visible
             devices), or a ``jax.sharding.Mesh`` — samples/chains are
-            sharded over the mesh and reduced with psum over ICI.
+            sharded over the mesh and reduced with psum across devices.
     """
 
     def __init__(

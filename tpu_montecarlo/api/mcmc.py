@@ -1,11 +1,10 @@
 """Scalar-chain MCMC: integrate_mcmc / compile_mcmc, checkpoint and
 resume, and the Pallas/XLA MCMC program builders with their
-eligibility and VMEM gates."""
+eligibility gates."""
 
 from __future__ import annotations
 
 import hashlib
-import warnings
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -54,7 +53,6 @@ from .device import (
     _device_mode_tables,
     _device_uniform_log_tables,
     _mcmc_prop_inverse,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -91,7 +89,7 @@ class _McmcMixin:
         temperatures: Optional[List[float]] = None,
     ) -> IntegrationResult:
         """Compute E_p[f(X)] with parallel independence-sampler
-        Metropolis-Hastings chains (one chain per lane).
+        Metropolis-Hastings chains (one chain per device thread).
 
         ``temperatures=[1.0, T_2, ..., T_R]`` (ascending, first entry
         1.0; takes a :class:`RandomWalk` / :class:`HMC` proposal or a
@@ -118,8 +116,8 @@ class _McmcMixin:
         (histograms, quantiles, posterior predictive) at user-bounded
         memory; a surface the expectations-only reference lacks (its
         chains never leave the device, src/shader_gen.rs:390-392).
-        Rides the Pallas kernel on eligible workloads (draw blocks are
-        DMA-streamed to HBM; estimates bit-identical to the
+        Rides the Pallas kernel on eligible workloads (draw rows are
+        stored from registers; estimates bit-identical to the
         samples-free run), the XLA backend otherwise.
 
         Passing :class:`RandomWalk` as ``proposal_distribution`` switches
@@ -165,8 +163,8 @@ class _McmcMixin:
         target too slowly.  ``result.diagnostics["ess"]`` is the
         matching effective sample size (m*n*var+/B, capped at the
         diagnostic draw count): how many INDEPENDENT draws the
-        correlated chains are worth.  Diagnostics runs execute on the
-        XLA backend.
+        correlated chains are worth.  Diagnostics ride the Pallas
+        kernel whenever the plain run would.
         """
         if len(functions) == 0:
             raise ValueError("At least one function is required")
@@ -277,7 +275,7 @@ class _McmcMixin:
             )
 
         # Checkpoint/resume: both backends surface chain state (the Pallas
-        # kernel carries it in VMEM for the whole sweep and writes the
+        # kernel carries it in registers for the whole sweep and writes the
         # final (x, log_p) blocks; reference bar: state never leaves the
         # device, src/shader_gen.rs:390-392).  The backends plan chain
         # counts differently, so a resume state minted on one routes back
@@ -348,7 +346,7 @@ class _McmcMixin:
         ``return_samples=m`` (untempered 1-D handles): the handle
         additionally returns — LAST — the (m, chains) thinned
         post-burn-in draws (see :meth:`integrate_mcmc`); rides the
-        Pallas kernel's DMA-streamed draw output on eligible workloads.
+        Pallas kernel's in-register draw output on eligible workloads.
         Composes with ``seed_batch``/``param_batch``: each batch rep
         streams its own draw slab, returned as (R, m, chains).
 
@@ -458,10 +456,10 @@ class _McmcMixin:
         stateful: bool = False,
     ) -> bool:
         """Pallas-kernel eligibility for an MCMC workload: CUSTOM families
-        need uniform log-pdf x-grids (host-built ones are) and a
-        lane-multiple inverse-CDF table for the in-kernel lookups; the
-        kernel also reserves one output lane for the accept count, capping
-        K at 127.  Anything else routes to the XLA backend.
+        need uniform log-pdf x-grids (host-built ones are) for the
+        in-kernel lookups, and K stays under 128 so each thread's K
+        accumulators fit in registers.  Anything else routes to the XLA
+        backend.
         ``random_walk=True`` (prop_spec is None): the proposal is a
         tableless symmetric Gaussian step, so only the target-side checks
         apply."""
@@ -479,7 +477,7 @@ class _McmcMixin:
             ok = _uniform_log_tables(target_distribution) is not None
         if ok and not random_walk and prop_spec.kind == DistKind.CUSTOM:
             # exact_inverse proposals sample through host-built
-            # gap-respecting tables (always lane-multiple).  STATELESS
+            # gap-respecting tables.  STATELESS
             # non-gapped proposals run sampler-mode logq (the draw's
             # own slope is the exact proposal density), so they need no
             # q-table fidelity pipeline at all; gapped and stateful
@@ -489,7 +487,7 @@ class _McmcMixin:
                 prop_spec.exact_inverse
                 or (
                     prop_spec.x_table is not None
-                    and prop_spec.x_table.shape[0] % 128 == 0
+                    and prop_spec.x_table.shape[0] >= 2
                 )
             )
             if ok and needs_q_table:
@@ -567,38 +565,16 @@ class _McmcMixin:
 
         # (HMC rides the kernel on CUSTOM table targets too: the
         # position gradient is the log-table interpolant's gathered
-        # slope, not a gather-VJP scatter — see mcmc_pallas._log_pdf_grad.
-        # Raw draws ride the kernel as well: thinned chain blocks are
-        # staged in VMEM and DMA-streamed to an HBM output, so the loop
-        # and estimates are bit-identical to the samples-free kernel.)
+        # slope, not a gather-VJP scatter — see _Chains.log_pdf_grad.
+        # Raw draws ride the kernel as well: thinned states are stored
+        # from registers, so the loop and estimates are bit-identical to
+        # the samples-free kernel.)
         pallas_ok = self._mcmc_pallas_ok(
             traced, prop_spec, targ_spec,
             target_distribution, proposal_distribution,
             random_walk=random_walk,
             stateful=with_state or use_init_state,
         )
-        if pallas_ok:
-            # The kernel keeps the (seed_batch x programs, 128) sums
-            # buffer (tripled for error-bar runs: sums / SS / centroid
-            # rows) and, stateful, the whole chain-state blocks resident
-            # in VMEM; workloads over the budget take the XLA backend
-            # instead of compile-OOMing.
-            from ..ops.mcmc_pallas import mcmc_vmem_fits, plan_mcmc_grid
-
-            programs, rows, _ = plan_mcmc_grid(total_chains)
-            programs = -(-programs // n_dev) * n_dev
-            pallas_ok = mcmc_vmem_fits(
-                len(traced), rows, programs // n_dev,
-                seed_batch=seed_batch, with_state=with_state,
-                table_bytes=_mcmc_table_bytes(
-                    prop_spec, targ_spec,
-                    target_distribution, proposal_distribution,
-                ),
-                with_stderr=with_stderr,
-                hmc=bool(hmc_L),
-                with_diagnostics=with_diagnostics,
-                with_samples=bool(with_samples),
-            )
         if pallas_ok and with_state:
             from ..ops.mcmc_pallas import plan_state_chains
 
@@ -609,16 +585,11 @@ class _McmcMixin:
                 and initial_chains == total_chains
             ):
                 pallas_ok = False  # state minted by the XLA backend
-        if not pallas_ok and self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this MCMC workload is "
-                "not Pallas-eligible; running the XLA backend instead",
-                stacklevel=3,
-            )
+        if not pallas_ok:
+            self._no_kernel("this MCMC workload is not Pallas-eligible")
         if pallas_ok:
             from ..ops.mcmc_pallas import build_mcmc_fn_pallas
 
-            interpret = jax.default_backend() != "tpu"
             prop_gapped = (
                 not random_walk
                 and prop_spec.kind == DistKind.CUSTOM
@@ -655,7 +626,6 @@ class _McmcMixin:
                 total_chains,
                 None if random_walk else _table_shapes(prop_spec),
                 _mesh_key(mesh),
-                interpret,
                 (with_state, use_init_state, prop_gapped),
                 seed_batch,
                 param_batch,
@@ -675,7 +645,6 @@ class _McmcMixin:
                         n_burnin,
                         total_chains,
                         mesh=mesh,
-                        interpret=interpret,
                         with_state=with_state,
                         use_init_state=use_init_state,
                         prop_gapped=prop_gapped,

@@ -5,7 +5,6 @@ builders, and the nd AOT/batched handles."""
 from __future__ import annotations
 
 import hashlib
-import warnings
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -53,9 +52,7 @@ from .device import (
     _device_log_tables_of,
     _device_mode_tables,
     _device_uniform_log_tables,
-    _mcmc_nd_table_bytes,
     _mcmc_prop_inverse,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -142,282 +139,6 @@ class _McmcNdMixin:
             )
         return proposals, targets, target_fn, d
 
-    def _nd_mcmc_pallas_eligible(
-        self, prop_kinds, targ_kinds, target_fn, traced, total_chains,
-        d, return_stderr, hmc_L: int = 0, with_samples: int = 0,
-        proposals=None, prop_specs=None, targets=None,
-        with_diagnostics: bool = False,
-    ) -> bool:
-        """nd MCMC kernel gate: analytic or CUSTOM-table dims (CUSTOM
-        needs uniform log-pdf x-grids and, proposal-side, the
-        table-fidelity pipeline — per-dim, the 1-D kernel's checks),
-        analytic/CUSTOM-product or block-traceable joint-fn target,
-        <=127 fused d-ary integrands evaluating on lane blocks, and d
-        state blocks + resident tables fitting VMEM."""
-        from ..ops.mcmc_nd_pallas import (
-            mcmc_nd_pallas_supports,
-            mcmc_nd_vmem_fits,
-        )
-        from ..ops.mcmc_pallas import plan_mcmc_grid
-
-        n_dev = 1 if self._mesh is None else self._mesh.size
-        programs, rows, _ = plan_mcmc_grid(total_chains)
-        programs = -(-programs // n_dev) * n_dev
-        targ_specs = (
-            None
-            if targets is None or targ_kinds is None
-            else [dist_spec_of(t) for t in targets]
-        )
-        ok = (
-            mcmc_nd_pallas_supports(prop_kinds, targ_kinds)
-            and len(traced) < 128
-            and not any(
-                getattr(f, "__tpu_mc_no_pallas__", False) for f in traced
-            )
-            and _block_traceable(traced, n_args=d)
-            and (
-                target_fn is None
-                or (
-                    not getattr(target_fn, "__tpu_mc_no_pallas__", False)
-                    and _block_traceable((target_fn,), n_args=d)
-                )
-            )
-            and mcmc_nd_vmem_fits(
-                len(traced), d, rows, programs // n_dev,
-                with_stderr=return_stderr, hmc=bool(hmc_L),
-                with_samples=bool(with_samples),
-                table_bytes=_mcmc_nd_table_bytes(
-                    prop_specs, targ_specs, targets, proposals
-                ),
-                with_diagnostics=with_diagnostics,
-            )
-        )
-        # Per-dim CUSTOM table checks, exactly the 1-D kernel's
-        # (_mcmc_pallas_ok): target dims need a uniform log grid,
-        # proposal dims no heavy tail and a lane-multiple (or
-        # gap-respecting) inverse table.  Non-gapped proposal dims run
-        # sampler-mode logq (the draw's own slope is the exact
-        # proposal density — the nd kernel is stateless-only), so only
-        # GAPPED dims additionally need the q-table fidelity pipeline.
-        if ok and targ_specs is not None:
-            for t_dist, s in zip(targets, targ_specs):
-                if s.kind == DistKind.CUSTOM:
-                    ok = ok and _uniform_log_tables(t_dist) is not None
-        if ok and prop_specs is not None:
-            for p, s in zip(proposals, prop_specs):
-                if s.kind != DistKind.CUSTOM:
-                    continue
-                ok = (
-                    ok
-                    and not s.heavy_tail
-                    and (
-                        s.exact_inverse
-                        or (
-                            s.x_table is not None
-                            and s.x_table.shape[0] % 128 == 0
-                        )
-                    )
-                )
-                if ok and s.exact_inverse:
-                    ok = _proposal_kernel_log_tables(p) is not None
-        if not ok and self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this nd MCMC workload is "
-                "not kernel-eligible (a table dimension failing the "
-                "uniform-grid/fidelity checks, a function that does not "
-                "evaluate on lane blocks, or over the VMEM budget); "
-                "running the XLA backend instead",
-                stacklevel=4,
-            )
-        return ok
-
-    def _nd_mcmc_kernel_program(
-        self, traced, proposals, prop_specs, targets, target_fn,
-        n_steps, n_burnin, total_chains, return_stderr,
-        seed_batch: int = 1, param_batch: bool = False,
-        proposal_rw=None, d: int = 0, with_samples: int = 0,
-        with_diagnostics: bool = False,
-    ):
-        """Cached nd MH Pallas kernel program (analytic dims; product or
-        joint-fn target) + its device args ``(prop_params_t,
-        targ_params_t)``.  ``seed_batch=R`` batches R runs as the
-        kernel's leading grid dimension (tagged native).
-        ``proposal_rw``: a RandomWalk proposal — the kernel then runs
-        random-walk MH and ``prop_params_t`` becomes its (d, 4)
-        parameter rows (``d`` required then; otherwise unused)."""
-        from ..ops.mcmc_nd_pallas import build_mcmc_nd_pallas
-
-        mesh = self._mesh
-        random_walk = proposal_rw is not None
-        hmc_L = (
-            proposal_rw.n_leapfrog
-            if isinstance(proposal_rw, HMC)
-            else 0
-        )
-        prop_inv_tables = []
-        prop_log_tables = []
-        prop_gapped = []
-        if random_walk:
-            prop_kinds = ()
-            prop_params_t = jnp.asarray(
-                proposal_rw.pack_params_nd(targets, d)
-            )
-            prop_key = (
-                ("hmc", hmc_L, proposal_rw.adapt)
-                if hmc_L
-                else ("rw", proposal_rw.adapt)
-            )
-        else:
-            prop_kinds = tuple(s.kind for s in prop_specs)
-            prop_params_t = tuple(
-                _device_args_of(p, s)[0]
-                for p, s in zip(proposals, prop_specs)
-            )
-            # CUSTOM proposal dims sample in-kernel through their
-            # inverse-CDF tables (gap-respecting host-built pairs for
-            # exact_inverse dims) and evaluate q through the guarded
-            # uniform log tables — per dim, the 1-D kernel's staging.
-            for p, s in zip(proposals, prop_specs):
-                if s.kind != DistKind.CUSTOM:
-                    continue
-                if s.exact_inverse:
-                    t, dt = _device_gapped_tables(p, s, stratified=False)
-                    prop_inv_tables.append((t, dt))
-                    prop_gapped.append(True)
-                else:
-                    # Sampler-mode logq dims (the nd kernel is
-                    # stateless-only) take the error-bounded
-                    # downsampled inverse — the draw's own slope is the
-                    # exact proposal density at any resolution
-                    # (device._mcmc_prop_inverse); the table shape
-                    # flows into prop_key below.
-                    prop_inv_tables.append(
-                        (_mcmc_prop_inverse(p, s),)
-                    )
-                    prop_gapped.append(False)
-                if prop_gapped[-1]:
-                    # Sampler-mode (non-gapped) dims never read a
-                    # q-table — logq rides the draw; only gapped dims
-                    # stage the guarded log tables.
-                    prop_log_tables.append(
-                        _device_uniform_log_tables(p, "proposal")
-                    )
-            prop_key = (
-                prop_kinds,
-                tuple(prop_gapped),
-                tuple(e[0].shape for e in prop_inv_tables),
-                tuple(t[0].shape for t in prop_log_tables),
-            )
-        targ_log_tables = []
-        if target_fn is not None:
-            targ_kinds = None
-            targ_params_t = ()
-            targ_key = ("fn", _fn_key(target_fn))
-        else:
-            targ_specs = [dist_spec_of(t) for t in targets]
-            targ_kinds = tuple(s.kind for s in targ_specs)
-            targ_params_t = tuple(
-                _device_args_of(t, s)[0]
-                for t, s in zip(targets, targ_specs)
-            )
-            targ_log_tables = [
-                _device_uniform_log_tables(t)
-                for t, s in zip(targets, targ_specs)
-                if s.kind == DistKind.CUSTOM
-            ]
-            targ_key = (
-                "kinds",
-                targ_kinds,
-                tuple(t[0].shape for t in targ_log_tables),
-            )
-        interpret = jax.default_backend() != "tpu"
-        key = (
-            "mcmc_nd_pallas",
-            _fns_key(traced),
-            prop_key,
-            targ_key,
-            n_steps,
-            n_burnin,
-            total_chains,
-            _mesh_key(mesh),
-            interpret,
-            return_stderr,
-            seed_batch,
-            param_batch,
-            with_samples,
-            with_diagnostics,
-        )
-        run = self._cache.get_or_build(
-            key,
-            lambda: _tag_native_batch(
-                build_mcmc_nd_pallas(
-                    traced, prop_kinds, n_steps, n_burnin, total_chains,
-                    targ_kinds=targ_kinds, target_logpdf_fn=target_fn,
-                    mesh=mesh, interpret=interpret,
-                    with_stderr=return_stderr, seed_batch=seed_batch,
-                    param_batch=param_batch,
-                    random_walk=random_walk,
-                    rw_adapt=random_walk and proposal_rw.adapt,
-                    rw_d=d if random_walk else 0,
-                    hmc_leapfrog=hmc_L,
-                    with_samples=with_samples,
-                    prop_gapped=tuple(prop_gapped),
-                    with_diagnostics=with_diagnostics,
-                ),
-                seed_batch,
-                param_batch=param_batch,
-            ),
-        )
-        return run, (
-            prop_params_t,
-            targ_params_t,
-            tuple(prop_inv_tables),
-            tuple(targ_log_tables),
-            tuple(prop_log_tables),
-        )
-
-    def _run_mcmc_nd_pallas(
-        self, functions, traced, proposals, prop_specs, targets,
-        target_fn, n_steps, n_chains, n_burnin, seed, total_chains,
-        return_stderr, proposal_rw=None, d: int = 0,
-        return_samples: int = 0, return_diagnostics: bool = False,
-    ) -> IntegrationResult:
-        """Dispatch one nd MCMC run on the fused Pallas kernel (analytic
-        or CUSTOM-table dims, RandomWalk/HMC; product or joint-fn
-        target)."""
-        run, dev_args = self._nd_mcmc_kernel_program(
-            traced, proposals, prop_specs, targets, target_fn,
-            n_steps, n_burnin, total_chains, return_stderr,
-            proposal_rw=proposal_rw, d=d, with_samples=return_samples,
-            with_diagnostics=return_diagnostics,
-        )
-        out = run(np.uint32(seed), *dev_args)
-        idx = 2
-        stderr = None
-        diagnostics = None
-        samples = None
-        if return_stderr:
-            stderr = out[idx]
-            idx += 1
-        if return_diagnostics:
-            diagnostics = {
-                "r_hat": np.array(out[idx], dtype=np.float64),
-                "ess": np.array(out[idx + 1], dtype=np.float64),
-            }
-            idx += 2
-        if return_samples:
-            # Kernel streams (m, d, chains_actual); surface (m, chains, d).
-            samples = np.transpose(np.asarray(out[idx]), (0, 2, 1))
-        return IntegrationResult(
-            values=out[0],
-            n_samples=n_chains * n_steps,
-            n_functions=len(functions),
-            acceptance_rate=float(out[1]),
-            stderr=stderr,
-            diagnostics=diagnostics,
-            samples=samples,
-        )
-
     def _integrate_mcmc_nd(
         self, functions, target, proposal, n_steps, n_chains, n_burnin,
         seed, initial_state, return_state, return_stderr,
@@ -458,39 +179,7 @@ class _McmcNdMixin:
         n_dev = 1 if mesh is None else mesh.size
         total_chains = plan_chains(n_chains, self._target_threads, n_dev)
 
-        prop_kinds_early = (
-            () if random_walk else tuple(s.kind for s in prop_specs)
-        )
-        targ_kinds_early = (
-            None
-            if target_fn is not None
-            else tuple(dist_spec_of(t).kind for t in targets)
-        )
-        if (
-            not want_state
-            and self._use_pallas(DistKind.NORMAL)
-            and self._nd_mcmc_pallas_eligible(
-                prop_kinds_early, targ_kinds_early, target_fn, traced,
-                total_chains, d, return_stderr,
-                hmc_L=(
-                    proposal.n_leapfrog
-                    if isinstance(proposal, HMC)
-                    else 0
-                ),
-                with_samples=return_samples,
-                proposals=proposals, prop_specs=prop_specs,
-                targets=targets,
-                with_diagnostics=return_diagnostics,
-            )
-        ):
-            return self._run_mcmc_nd_pallas(
-                functions, traced, proposals, prop_specs, targets,
-                target_fn, n_steps, n_chains, n_burnin, seed,
-                total_chains, return_stderr,
-                proposal_rw=proposal if random_walk else None, d=d,
-                return_samples=return_samples,
-                return_diagnostics=return_diagnostics,
-            )
+        self._warn_no_kernel("nd MCMC")
 
         use_init = initial_state is not None
         run, dev_args = self._nd_mcmc_xla_program(
@@ -766,39 +455,15 @@ class _McmcNdMixin:
                 ensure_param_batch_family(kk, "proposal")
             for kk in targ_kinds:
                 ensure_param_batch_family(kk, "target")
-        kernel_ok = (
-            self._use_pallas(DistKind.NORMAL)
-            and self._nd_mcmc_pallas_eligible(
-                prop_kinds, targ_kinds, target_fn, traced,
-                total_chains, d, return_stderr,
-                hmc_L=(
-                    proposal.n_leapfrog
-                    if isinstance(proposal, HMC)
-                    else 0
-                ),
-                proposals=proposals, prop_specs=prop_specs,
-                targets=targets,
-                with_samples=return_samples,
-            )
+        self._warn_no_kernel("nd MCMC")
+        run, dev_args = self._nd_mcmc_xla_program(
+            traced, proposals, prop_specs, targets, target_fn,
+            n_steps, n_burnin, total_chains, return_stderr,
+            proposal_rw=proposal if random_walk else None, d=d,
+            with_samples=return_samples,
         )
-        if kernel_ok:
-            run, dev_args = self._nd_mcmc_kernel_program(
-                traced, proposals, prop_specs, targets, target_fn,
-                n_steps, n_burnin, total_chains, return_stderr,
-                seed_batch=seed_batch, param_batch=param_batch,
-                proposal_rw=proposal if random_walk else None, d=d,
-                with_samples=return_samples,
-            )
-        else:
-            run, dev_args = self._nd_mcmc_xla_program(
-                traced, proposals, prop_specs, targets, target_fn,
-                n_steps, n_burnin, total_chains, return_stderr,
-                proposal_rw=proposal if random_walk else None, d=d,
-                with_samples=return_samples,
-            )
         if param_batch:
-            if not kernel_ok:
-                run = _nd_mcmc_param_map_adapter(run, d, dev_args[2:])
+            run = _nd_mcmc_param_map_adapter(run, d, dev_args[2:])
             return _nd_mcmc_param_prog(
                 run, seed_batch, d, targ_kinds, prop_kinds,
                 random_walk=random_walk,

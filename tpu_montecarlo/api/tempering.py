@@ -5,7 +5,6 @@ design)."""
 from __future__ import annotations
 
 import hashlib
-import warnings
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -54,7 +53,6 @@ from .device import (
     _device_mode_tables,
     _device_uniform_log_tables,
     _mcmc_prop_inverse,
-    _mcmc_table_bytes,
     _proposal_kernel_log_tables,
     _table_shapes,
     _tbl,
@@ -126,32 +124,14 @@ class _PtMixin:
         mesh = self._mesh
         n_dev = 1 if mesh is None else mesh.size
         total_chains = plan_chains(n_chains, self._target_threads, n_dev)
-        # Cold-rung draws (round 4) AND cold-rung stderr/split-R-hat
-        # (round 5: the plain kernels' pilot-shifted stat blocks on the
-        # cold rung) all ride the kernel.
-        if self._use_pallas(DistKind.NORMAL) and self._pt_pallas_eligible(
-            targets, target_fn, proposal, traced, d, total_chains,
-            betas, with_samples=int(return_samples or 0),
-            with_stderr=return_stderr,
-            with_diagnostics=return_diagnostics,
+        self._warn_no_kernel("tempered MCMC")
+        run, dev_args = self._pt_mcmc_program(
+            traced, targets, target_fn, betas, proposal, d,
+            n_steps, n_burnin, total_chains, return_stderr,
+            return_diagnostics,
+            with_samples=int(return_samples or 0),
             proposals=proposals,
-        ):
-            run, dev_args = self._pt_kernel_program(
-                traced, targets, target_fn, betas, proposal, d,
-                n_steps, n_burnin, total_chains,
-                with_samples=int(return_samples or 0),
-                with_stderr=return_stderr,
-                with_diagnostics=return_diagnostics,
-                proposals=proposals,
-            )
-        else:
-            run, dev_args = self._pt_mcmc_program(
-                traced, targets, target_fn, betas, proposal, d,
-                n_steps, n_burnin, total_chains, return_stderr,
-                return_diagnostics,
-                with_samples=int(return_samples or 0),
-                proposals=proposals,
-            )
+        )
         out = run(np.uint32(seed), *dev_args)
         values, acc_rate, swap_rate = out[0], out[1], out[2]
         idx = 3
@@ -327,103 +307,6 @@ class _PtMixin:
             )
         return run, dev_args
 
-    def _pt_pallas_eligible(
-        self, targets, target_fn, proposal_rw, traced, d, total_chains,
-        betas, with_samples: int = 0, with_stderr: bool = False,
-        with_diagnostics: bool = False, proposals=None,
-    ) -> bool:
-        """Tempered-kernel gate: RandomWalk/HMC or independence proposals
-        over analytic / non-gapped CUSTOM dims (sampler-mode logq —
-        gapped and heavy-tail dims take the XLA sweep), <=126 fused
-        d-ary integrands evaluating on lane blocks
-        (columns k/k+1 carry the accept and swap counters), a target
-        the kernel can evaluate — analytic product, block-traceable
-        joint fn, or (1-D, non-HMC) a CUSTOM uniform-grid log table —
-        and the T-rung state fitting VMEM."""
-        from ..ops.mcmc_pallas import plan_mcmc_grid
-        from ..ops.mcmc_pt_pallas import pt_vmem_fits
-        from ..sampling import ANALYTIC_KINDS
-
-        independence = proposals is not None
-        hmc_L = (
-            proposal_rw.n_leapfrog
-            if isinstance(proposal_rw, HMC)
-            else 0
-        )
-        n_dev = 1 if self._mesh is None else self._mesh.size
-        programs, rows, _ = plan_mcmc_grid(total_chains)
-        programs = -(-programs // n_dev) * n_dev
-        ok = (
-            len(traced) <= 126
-            and not any(
-                getattr(f, "__tpu_mc_no_pallas__", False) for f in traced
-            )
-            and _block_traceable(traced, n_args=d)
-        )
-        table_bytes = 0
-        if ok and independence:
-            # Analytic dims, or non-gapped CUSTOM dims (round 5):
-            # sampler-mode logq needs no q-table, just a lane-multiple
-            # inverse (downsampled, device._mcmc_prop_inverse); gapped
-            # (exact_inverse) and heavy-tail dims take the XLA sweep.
-            for p in proposals:
-                s = dist_spec_of(p)
-                if s.kind in ANALYTIC_KINDS:
-                    continue
-                if (
-                    s.kind != DistKind.CUSTOM
-                    or s.exact_inverse
-                    or s.heavy_tail
-                    or s.x_table is None
-                    or s.x_table.shape[0] % 128 != 0
-                ):
-                    ok = False
-                    break
-                table_bytes += (
-                    2 * int(_mcmc_prop_inverse(p, s).shape[0]) * 4
-                )
-        if ok:
-            if target_fn is not None:
-                ok = not getattr(
-                    target_fn, "__tpu_mc_no_pallas__", False
-                ) and _block_traceable((target_fn,), n_args=d)
-            else:
-                # Any mix of analytic and CUSTOM table dims runs
-                # tempered in-kernel (round 5; HMC included — table
-                # gradients are gathered interpolant slopes); CUSTOM
-                # dims need the uniform-grid log tables.
-                for t in targets:
-                    kk = dist_spec_of(t).kind
-                    if kk in ANALYTIC_KINDS:
-                        continue
-                    if kk != DistKind.CUSTOM or (
-                        _uniform_log_tables(t) is None
-                    ):
-                        ok = False
-                        break
-                    lx, _ = _device_uniform_log_tables(t)
-                    table_bytes += (
-                        2 * (-(-int(lx.shape[0]) // 128) * 128) * 4
-                    )
-        ok = ok and pt_vmem_fits(
-            len(traced), d, rows, programs // n_dev, len(betas),
-            rw_adapt=(not independence) and proposal_rw.adapt,
-            hmc=bool(hmc_L),
-            table_bytes=table_bytes, with_samples=bool(with_samples),
-            with_stderr=with_stderr, with_diagnostics=with_diagnostics,
-            independence=independence,
-        )
-        if not ok and self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this tempered workload "
-                "is not kernel-eligible (a table-sampled dimension, a "
-                "function that does not evaluate on lane blocks, or a "
-                "ladder over the VMEM budget); running the XLA backend "
-                "instead",
-                stacklevel=4,
-            )
-        return ok
-
     def _compile_mcmc_pt(
         self, functions, target, proposal, temperatures, n_steps,
         n_chains, n_burnin, seed_batch, param_batch, return_stderr,
@@ -466,24 +349,7 @@ class _PtMixin:
         mesh = self._mesh
         n_dev = 1 if mesh is None else mesh.size
         total_chains = plan_chains(n_chains, self._target_threads, n_dev)
-        if self._use_pallas(DistKind.NORMAL) and self._pt_pallas_eligible(
-            targets, target_fn, proposal, traced, d, total_chains,
-            betas, with_stderr=return_stderr, proposals=proposals,
-        ):
-            run, dev_args = self._pt_kernel_program(
-                traced, targets, target_fn, betas, proposal, d,
-                n_steps, n_burnin, total_chains, seed_batch=seed_batch,
-                with_stderr=return_stderr, proposals=proposals,
-            )
-            return self._finalize_prog(
-                run, dev_args, seed_batch, n_param_args=0
-            )
-        if self._backend == "pallas":
-            warnings.warn(
-                "backend='pallas' requested but this tempered handle "
-                "runs on the XLA backend",
-                stacklevel=3,
-            )
+        self._warn_no_kernel("tempered MCMC")
         run, dev_args = self._pt_mcmc_program(
             traced, targets, target_fn, betas, proposal, d,
             n_steps, n_burnin, total_chains, return_stderr,
@@ -491,124 +357,4 @@ class _PtMixin:
         )
         return self._finalize_prog(
             run, dev_args, seed_batch, n_param_args=0
-        )
-
-    def _pt_kernel_program(
-        self, traced, targets, target_fn, betas, proposal_rw, d,
-        n_steps, n_burnin, total_chains, seed_batch: int = 1,
-        with_samples: int = 0, with_stderr: bool = False,
-        with_diagnostics: bool = False, proposals=None,
-    ):
-        """Cached in-kernel parallel-tempering program + device args
-        ``(prop_rows, targ_params, targ_lx, targ_lp)`` — see
-        ops/mcmc_pt_pallas.py for the rung-block design.
-        ``proposals``: per-dimension analytic proposal Distributions —
-        tempered INDEPENDENCE sampling; the prop slot then carries the
-        (d, 2) family rows."""
-        from ..ops.mcmc_pt_pallas import build_pt_mcmc_fn_pallas
-
-        mesh = self._mesh
-        dummy = _tbl(None)
-        independence = proposals is not None
-        hmc_L = (
-            proposal_rw.n_leapfrog
-            if isinstance(proposal_rw, HMC)
-            else 0
-        )
-        prop_inv_dev = ()
-        if independence:
-            prop_specs = [dist_spec_of(p) for p in proposals]
-            prop_kinds = tuple(s.kind for s in prop_specs)
-            prop_dev = jnp.stack(
-                [
-                    _device_args_of(p, s)[0]
-                    for p, s in zip(proposals, prop_specs)
-                ]
-            )
-            # CUSTOM dims: downsampled inverse tables, dim order
-            # (sampler-mode logq in-kernel — no q-tables staged).
-            prop_inv_dev = tuple(
-                _mcmc_prop_inverse(p, s)
-                for p, s in zip(proposals, prop_specs)
-                if s.kind == DistKind.CUSTOM
-            )
-            prop_key = (
-                "ind",
-                prop_kinds,
-                tuple(t.shape for t in prop_inv_dev),
-            )
-            rw_adapt = False
-        else:
-            prop_kinds = None
-            prop_dev = jnp.asarray(proposal_rw.pack_params_nd(targets, d))
-            prop_key = ("hmc", hmc_L, proposal_rw.adapt)
-            rw_adapt = proposal_rw.adapt
-        log_dev = (dummy, dummy)
-        targ_kinds = None
-        if target_fn is not None:
-            targ_params = jnp.zeros((1, 2), jnp.float32)
-            targ_key = ("fn", _fn_key(target_fn))
-        else:
-            # Any analytic/CUSTOM mix (round 5): per-dim family rows
-            # (CUSTOM rows unread) + one uniform log-table pair per
-            # CUSTOM dim, dim order.
-            specs = [dist_spec_of(t) for t in targets]
-            targ_kinds = tuple(s.kind for s in specs)
-            targ_params = jnp.stack(
-                [
-                    _device_args_of(t, s)[0]
-                    for t, s in zip(targets, specs)
-                ]
-            )
-            custom_tabs = [
-                _device_uniform_log_tables(t)
-                for t, s in zip(targets, specs)
-                if s.kind == DistKind.CUSTOM
-            ]
-            if custom_tabs:
-                log_dev = (
-                    tuple(t[0] for t in custom_tabs),
-                    tuple(t[1] for t in custom_tabs),
-                )
-            targ_key = (
-                "kinds",
-                targ_kinds,
-                tuple(t[0].shape for t in custom_tabs),
-            )
-        interpret = jax.default_backend() != "tpu"
-        key = (
-            "mcmc_pt_pallas",
-            _fns_key(traced),
-            betas,
-            prop_key,
-            targ_key,
-            n_steps,
-            n_burnin,
-            total_chains,
-            _mesh_key(mesh),
-            interpret,
-            seed_batch,
-            with_samples,
-            with_stderr,
-            with_diagnostics,
-        )
-        run = self._cache.get_or_build(
-            key,
-            lambda: _tag_native_batch(
-                build_pt_mcmc_fn_pallas(
-                    traced, d, betas, n_steps, n_burnin, total_chains,
-                    targ_kinds=targ_kinds, target_logpdf_fn=target_fn,
-                    mesh=mesh,
-                    interpret=interpret, rw_adapt=rw_adapt,
-                    hmc_leapfrog=hmc_L, seed_batch=seed_batch,
-                    with_samples=with_samples,
-                    with_stderr=with_stderr,
-                    with_diagnostics=with_diagnostics,
-                    prop_kinds=prop_kinds,
-                ),
-                seed_batch,
-            ),
-        )
-        return run, (
-            prop_dev, targ_params, log_dev[0], log_dev[1], prop_inv_dev
         )

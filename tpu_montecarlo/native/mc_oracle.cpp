@@ -6,7 +6,7 @@
 // algorithmic content of src/distribution.rs (samplers, table lookups),
 // src/shader_gen.rs (the MH step math) and src/lib.rs:129-140 (the host
 // mean-reduction) — reimplemented from the written behaviour, not
-// translated.  On TPU the hot path belongs to XLA/Pallas; this library is
+// translated.  On the device the hot path belongs to XLA/Pallas; this library is
 // the independent cross-check that keeps the native-component parity
 // honest (SURVEY.md §2.1, §7.1).
 //
@@ -273,8 +273,7 @@ double mc_mcmc_moments(int32_t prop_kind, const float* prop_params,
 }
 
 // Multi-dimensional independence-sampler MH over a JOINT target — the
-// independent oracle for the nd MH kernels (ops/mcmc_nd_pallas.py /
-// ops/mcmc_nd.py): d-vector chain state, proposals drawn independently
+// independent oracle for the nd MH builder (ops/mcmc_nd.py): d-vector chain state, proposals drawn independently
 // per dimension from analytic families, acceptance with the proposal
 // log-density SUMMED over dimensions, burn-in/collection/averaging
 // conventions identical to the 1-D oracle above.  The target is an
@@ -348,7 +347,7 @@ double mc_mcmc_nd_gauss(double rho, const float* prop_params, int32_t d,
 }
 
 // Multi-dimensional product-of-independents integration — the oracle for
-// the nd fused integrate (ops/integrate_nd_pallas.py): d independent
+// the nd integrate sweep (ops/integrate_nd.py): d independent
 // draws per sample (analytic or custom-table per dimension), estimating
 // E[prod_j x_j] and E[sum_j x_j^2] in double.
 void mc_integrate_nd_mean(const int32_t* kinds, const float* params,

@@ -1,1 +1,2 @@
-"""Compute ops: XLA sweeps (portable) and Pallas kernels (TPU hot path)."""
+"""Compute ops: XLA sweeps (portable) and Pallas-Triton kernels (the GPU
+hot path)."""

@@ -1,30 +1,27 @@
-"""Fused Monte Carlo integration kernel (Pallas TPU backend).
+"""Fused Monte Carlo integration kernel (Pallas, Triton route).
 
-One Pallas program = the TPU analog of a GPU workgroup sweep
-(reference: src/shader_gen.rs:45-128): it seeds the per-core PRNG from
-(seed, program_id), loops ``loops_per_program`` times generating a
-(BLOCK_ROWS, 128) block of samples in VMEM, evaluates all K traced
-integrands on the SAME block (multi-function fusion), and accumulates K
-per-lane partial-sum blocks carried through the loop — disjoint writes,
-no atomics, same race-free-by-construction design as the reference's
-per-thread accumulators.  Each program writes one padded row of K partial
-sums; the host-side jitted wrapper tree-reduces rows on device and divides
-by the processed sample count.
+The per-thread design of the reference's workgroup sweep
+(src/shader_gen.rs:45-128), written for a GPU block: one program owns
+``loops`` consecutive blocks of ``block`` samples.  For each block it
+draws counter-based PCG bits in registers, maps them through the
+family's transform, evaluates all K traced integrands on the SAME
+samples (multi-function fusion) and adds them into K per-thread
+partial-sum vectors carried through an in-program ``fori_loop``.  Each
+program writes one (K,) row of partial sums; the jitted wrapper sums
+the rows and divides by the processed sample count.  Disjoint writes,
+no atomics: race-free by construction, like the reference's per-thread
+accumulators.
 
-Sampling transforms match the WGSL samplers distributionally
-(src/distribution.rs:80-124): uniform affine, normal via inverse-CDF
-(sampling.normal_from_u01 — measured faster on the VPU than the
-reference's Box-Muller; two uniform sub-blocks -> two normal sub-blocks
-per iteration, no concatenate), exponential inverse-transform with the
-1e-7 clamp.  CUSTOM (table) distributions sample fully in-kernel through
-the host-built uniform-u inverse-CDF table with segment lane-gathers
-(see _table_lookup).
+RNG: :class:`CounterRng`, the reference's stateless-counter idea
+(``pcg_hash(seed + idx*7199369 + iter*15485863)``,
+src/distribution.rs:62-73) keyed by (seed, program, block, position).
+The same function drives the kernel and its plain-jnp reference
+(``reference=True``), so the two see identical draws and differ only in
+summation order and in the math library (libdevice vs XLA).
 
-RNG is the TPU hardware PRNG seeded per (seed, program index) —
-counter-style stream separation like the reference's
-``pcg_hash(seed + idx*7199369 + iter*15485863)`` (distribution.rs:69-73);
-estimates are grid-shape-dependent (so was the reference's thread layout)
-but bit-reproducible for a fixed (seed, plan).
+CUSTOM (table) distributions sample through host-built stratified
+inverse-CDF tables with indexed loads (see
+:func:`prep_inv_table_stratified`).
 """
 
 from __future__ import annotations
@@ -36,7 +33,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 from jax.sharding import PartitionSpec as P
 
 from ..sampling import DistKind
@@ -44,32 +41,53 @@ from ..utils.dispatch import IntegratePlan
 from .qmc import _pcg_mix
 
 __all__ = [
+    "CounterRng",
     "build_integrate_fn_pallas",
-    "integrate_vmem_fits",
-    "pick_block_rows",
+    "interpret_mode",
     "pallas_supports",
+    "pick_block",
     "plan_pallas_grid",
 ]
 
-BLOCK_ROWS = 256
-LANES = 128
-BLOCK_ELEMS = BLOCK_ROWS * LANES
+# Samples per block (one fori_loop iteration of one program).  A block
+# is spread over NUM_WARPS * 32 threads, so each thread carries
+# ``block / 128`` elements of every accumulator in registers.
+MAX_BLOCK = 1024
+MIN_BLOCK = 128
+# Accumulator elements per program (K * block, doubled with error bars):
+# 64 float32 registers per thread at 4 warps.  Larger K shrinks the block
+# instead of spilling.
+ACC_BUDGET = 8192
 MAX_LOOPS_PER_PROGRAM = 512
-
-# Sample blocks evaluated per fori_loop iteration.  The dominant cost of
-# the compiled loop is per-ITERATION, not per-sample: the K carried
-# accumulator blocks are stored/reloaded around every iteration, which
-# floors the un-unrolled kernel at ~27 ps/sample regardless of the math
-# inside (measured: a trivial no-RNG body runs no faster than the full
-# K=8 headline).  Evaluating several blocks per iteration at fixed carry
-# size divides that overhead: 8 blocks/iter measured 3.75 ps/sample on
-# the raw structure and +27% end-to-end on the K=8 N(0,1) headline
-# (v5e).  Streams are unchanged: the block counter passed to the
-# samplers is the same global 0..loops-1 index, and the hardware PRNG
-# draws in the same order.
-UNROLL_BLOCKS = 8
+# Programs the planner aims for before it lengthens their loops: several
+# per SM of a 132-SM H100, so modest sample counts still fill the card.
+TARGET_PROGRAMS = 1024
+# Integrands fused into one pass; more chain passes over the same stream.
+MAX_FUSED = 64
+NUM_WARPS = 4
+# Knots per inverse-CDF stratum of the CUSTOM sampler.
+STRATUM_KNOTS = 128
 
 _INV_2POW24 = np.float32(1.0 / (1 << 24))
+
+
+def interpret_mode() -> bool:
+    """Whether Pallas kernels run in the interpreter: on the CPU (the test
+    tier) they do, on the GPU they compile through Triton, and any other
+    platform is refused rather than silently interpreted."""
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return False
+    if backend == "cpu":
+        return True
+    raise RuntimeError(
+        f"Pallas kernels support the 'gpu' and 'cpu' platforms, not "
+        f"{backend!r}; use backend='xla'"
+    )
+
+
+def compiler_params(num_warps: int = NUM_WARPS):
+    return plgpu.CompilerParams(num_warps=num_warps, num_stages=1)
 
 
 def pallas_supports(kind: DistKind) -> bool:
@@ -78,701 +96,384 @@ def pallas_supports(kind: DistKind) -> bool:
     return kind == DistKind.CUSTOM or kind in ANALYTIC_KINDS
 
 
-def plan_pallas_grid(n_samples: int, rows: int = BLOCK_ROWS):
+def pick_block(k: int, with_stderr: bool = False) -> int:
+    """Largest power-of-two block keeping the K carried accumulators (2K
+    with error bars) within the per-program register budget."""
+    n_acc = max(1, k * (2 if with_stderr else 1))
+    block = MAX_BLOCK
+    while block > MIN_BLOCK and n_acc * block > ACC_BUDGET:
+        block //= 2
+    return block
+
+
+def plan_pallas_grid(n_samples: int, block: int = MAX_BLOCK):
     """(num_programs, loops_per_program, actual_samples) with
     actual >= n_samples — the rounded-up equal-weight semantics of the
-    reference dispatch planner (src/engine.rs:157-181).  ``rows`` is the
-    kernel's block row count (shrunk below BLOCK_ROWS for high fused-K
-    workloads; see pick_block_rows)."""
-    block_elems = rows * LANES
-    total_blocks = -(-n_samples // block_elems)
-    loops = min(total_blocks, MAX_LOOPS_PER_PROGRAM)
+    reference dispatch planner (src/engine.rs:157-181)."""
+    total_blocks = -(-n_samples // block)
+    loops = max(1, min(MAX_LOOPS_PER_PROGRAM,
+                       -(-total_blocks // TARGET_PROGRAMS)))
     programs = -(-total_blocks // loops)
-    actual = programs * loops * block_elems
-    return programs, loops, actual
+    return programs, loops, programs * loops * block
 
 
-class HardwareRng:
-    """Random bits from the TPU hardware PRNG.  Stateful/sequential, so the
-    (counter, tag) arguments are ignored — the hardware stream advances on
-    every draw.  Seed once per program."""
-
-    def seed(self, *words):
-        pltpu.prng_seed(*words)
-
-    def bits(self, shape, counter, tag):
-        return pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
+def strata_for(block: int, m: Optional[int] = None) -> int:
+    """Strata of the stratified CUSTOM sampler: a power of two dividing
+    the block, at most 32 and at most one per 8 block samples.  Plain
+    tables take at most ``m // STRATUM_KNOTS`` (no stratum finer than
+    the table); gap-respecting tables always take the maximum, since
+    their host builder resolves each gap at a stratum knot."""
+    cap = min(32, block // 8)
+    if m is not None:
+        cap = max(1, min(cap, m // STRATUM_KNOTS))
+    return 1 << (cap.bit_length() - 1)
 
 
 class CounterRng:
-    """Pure-jnp counter-based PCG-hash stream for the Pallas interpreter
-    tier, where the hardware PRNG is stubbed out.  Same stateless-counter
-    design as the reference's ``pcg_hash(seed + idx*7199369 +
-    iter*15485863)`` (src/distribution.rs:62-73)."""
+    """Counter-based PCG-hash stream: the bits are a pure function of the
+    seed words, a counter, a tag and the element position, so any
+    element of any block can be regenerated anywhere (the reference's
+    ``pcg_hash(seed + idx*7199369 + iter*15485863)``,
+    src/distribution.rs:62-73)."""
 
-    def seed(self, *words):
+    def __init__(self, *words):
         s = jnp.uint32(0x9E3779B9)
         for w in words:
-            s = self._pcg(s ^ jnp.asarray(w).astype(jnp.uint32))
-        self._state = s
+            s = _pcg_mix(s ^ jnp.asarray(w).astype(jnp.uint32))
+        self.state = s
 
-    # Shared PCG output mix (single source of truth in ops/qmc.py).
-    _pcg = staticmethod(_pcg_mix)
-
-    def bits(self, shape, counter, tag):
-        rows, lanes = shape
-        pos = (
-            jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * jnp.uint32(lanes)
-            + jax.lax.broadcasted_iota(jnp.uint32, shape, 1)
-        )
-        base = self._pcg(
-            self._state
+    def bits(self, pos, counter, tag: int = 0):
+        """uint32 bits for the uint32 positions ``pos`` of block
+        ``counter``; ``tag`` separates draws that share a counter."""
+        base = _pcg_mix(
+            self.state
             + jnp.asarray(counter).astype(jnp.uint32) * jnp.uint32(15485863)
-            + jnp.uint32(tag) * jnp.uint32(7199369)
+            + jnp.uint32((tag * 7199369) & 0xFFFFFFFF)
         )
-        return self._pcg(base + pos * jnp.uint32(2654435761))
+        return _pcg_mix(base + pos * jnp.uint32(2654435761))
 
 
 def _mantissa(bits):
-    """24-bit random integers as int32 (uint32->f32 casts are unsupported
-    on Mosaic; after the >>8 the value fits int32 exactly)."""
+    """Top 24 bits as int32 (exact after the shift)."""
     return jax.lax.bitcast_convert_type(bits >> 8, jnp.int32)
 
 
-def _uniform_open01(rng, shape, counter=0, tag=0):
-    """(0, 1] uniforms (24-bit mantissa)."""
-    m = _mantissa(rng.bits(shape, counter, tag))
-    return (m + 1).astype(jnp.float32) * _INV_2POW24
+def u01_halfopen(bits):
+    """[0, 1) uniforms from uint32 bits."""
+    return _mantissa(bits).astype(jnp.float32) * _INV_2POW24
 
 
-def _uniform_halfopen01(rng, shape, counter=0, tag=0):
-    """[0, 1) uniforms."""
-    m = _mantissa(rng.bits(shape, counter, tag))
-    return m.astype(jnp.float32) * _INV_2POW24
+def u01_open(bits):
+    """(0, 1] uniforms from uint32 bits (for log-consuming transforms)."""
+    return (_mantissa(bits) + 1).astype(jnp.float32) * _INV_2POW24
 
 
-def _table_lookup(table_ref, dx_ref, i0, frac, rows, with_slope=False):
-    """Inverse-CDF lookup of ``i0``/``frac`` indices against a uniform-u
-    table laid out (SEGMENTS, 128) in VMEM.
-
-    Mosaic's dynamic_gather reaches 128 lanes per op with operand and index
-    shapes equal, so the lookup decomposes into one broadcast-row lane
-    gather per 128-entry segment plus a segment-select — all VPU work, no
-    searchsorted (the reference's 12-iteration device binary search,
-    distribution.rs:128-158, is pathological on TPU).
-
-    ``with_slope=True`` also returns the gathered forward difference —
-    the MCMC kernels' sampler-mode proposal density needs it (q = du/dx,
-    the exact density of this piecewise-linear-in-u sampler)."""
-    segments = table_ref.shape[0]
-    seg = i0 >> 7
-    col = i0 - (seg << 7)
-    x0 = jnp.zeros((rows, LANES), jnp.float32)
-    dx = jnp.zeros((rows, LANES), jnp.float32)
-    for s in range(segments):
-        row_x = jnp.broadcast_to(table_ref[s : s + 1, :], (rows, LANES))
-        row_d = jnp.broadcast_to(dx_ref[s : s + 1, :], (rows, LANES))
-        g_x = jnp.take_along_axis(row_x, col, axis=1)
-        g_d = jnp.take_along_axis(row_d, col, axis=1)
-        if segments == 1:
-            # Clipped i0 < 128 here, so seg is identically 0: skip the
-            # vacuous segment compare+selects (this is the hot shape —
-            # every 128-knot downsampled log table).
-            x0, dx = g_x, g_d
-            break
-        hit = seg == s
-        x0 = jnp.where(hit, g_x, x0)
-        dx = jnp.where(hit, g_d, dx)
-    if with_slope:
-        return x0 + frac * dx, dx
-    return x0 + frac * dx
-
-
-def _table_gather(table_ref, i0, rows, max_unroll_segments=0):
-    """Lane-gather of ONE (SEGMENTS, 128) table at flat indices ``i0`` —
-    the single-table half of :func:`_table_lookup` for lookups that need
-    only one of the (value, difference) pair (e.g. the HMC slope
-    gradient).  Small tables unroll the segment scan exactly as
-    :func:`uniform_table_value` does."""
-    segments = table_ref.shape[0]
-    seg = i0 >> 7
-    col = i0 - (seg << 7)
-    if segments == 1:
-        # Clipped i0 < 128: seg is identically 0 — one bare lane gather
-        # (the hot shape: 128-knot downsampled log/slope tables).
-        row = jnp.broadcast_to(table_ref[0:1, :], (rows, LANES))
-        return jnp.take_along_axis(row, col, axis=1)
-    if segments <= max_unroll_segments:
-        out = jnp.zeros((rows, LANES), jnp.float32)
-        for s in range(segments):
-            row = jnp.broadcast_to(table_ref[s : s + 1, :], (rows, LANES))
-            out = jnp.where(
-                seg == s, jnp.take_along_axis(row, col, axis=1), out
-            )
-        return out
-
-    def body(s, out):
-        row = jnp.broadcast_to(table_ref[pl.ds(s, 1), :], (rows, LANES))
-        return jnp.where(
-            seg == s, jnp.take_along_axis(row, col, axis=1), out
-        )
-
-    return jax.lax.fori_loop(
-        0, segments, body, jnp.zeros((rows, LANES), jnp.float32)
+def positions(block: int):
+    """uint32 positions 0..block-1 of a block."""
+    return jax.lax.broadcasted_iota(jnp.int32, (block,), 0).astype(
+        jnp.uint32
     )
 
 
-def _table_lookup_loop(table_ref, dx_ref, i0, frac, rows, with_slope=False):
-    """``fori_loop`` form of :func:`_table_lookup`: one segment per
-    iteration with loop-local temporaries.  The unrolled scan keeps every
-    segment's gather temporaries live on the Mosaic stack — fine at MCMC
-    chain-block sizes (rows <= 64), but at integrate block sizes it blows
-    the 16 MB scoped-VMEM limit (measured: ONE 32-segment lookup at
-    rows=256 under the nd kernel's 8-draw in-flight unroll allocated
-    93.6 MB and OOMed at compile time); the loop form bounds the stack at
-    one segment's temporaries at ~equal per-sample VPU work."""
-    segments = table_ref.shape[0]
-    seg = i0 >> 7
-    col = i0 - (seg << 7)
-
-    def body(s, carry):
-        x0, dx = carry
-        row_x = jnp.broadcast_to(
-            table_ref[pl.ds(s, 1), :], (rows, LANES)
-        )
-        row_d = jnp.broadcast_to(dx_ref[pl.ds(s, 1), :], (rows, LANES))
-        hit = seg == s
-        x0 = jnp.where(hit, jnp.take_along_axis(row_x, col, axis=1), x0)
-        dx = jnp.where(hit, jnp.take_along_axis(row_d, col, axis=1), dx)
-        return x0, dx
-
-    x0, dx = jax.lax.fori_loop(
-        0,
-        segments,
-        body,
-        (
-            jnp.zeros((rows, LANES), jnp.float32),
-            jnp.zeros((rows, LANES), jnp.float32),
-        ),
-    )
-    if with_slope:
-        # The gathered forward difference rides along for free — the
-        # sampler-mode IS denominator needs it (q = du / dx).
-        return x0 + frac * dx, dx
-    return x0 + frac * dx
+def table_value(x, vals, grid, outside):
+    """Interpolated lookup of ``x`` in a uniform-x-grid table:
+    ``vals`` (n,) and ``grid`` = (x0, step, x_max, 0), either arrays or
+    kernel refs (indexed loads in the kernel, gathers in jnp).
+    ``outside`` outside [x0, x_max] (0.0 for PDFs, -100 for log-PDFs —
+    reference conventions, src/distribution.rs:173-281, 367-475)."""
+    x0 = grid[0]
+    step = grid[1]
+    x_max = grid[2]
+    n = vals.shape[0]
+    pos = jnp.clip((x - x0) / step, 0.0, np.float32(n - 1))
+    i0 = jnp.minimum(pos.astype(jnp.int32), n - 2)
+    frac = jnp.clip(pos - i0.astype(jnp.float32), 0.0, 1.0)
+    v0 = vals[i0]
+    val = v0 + frac * (vals[i0 + 1] - v0)
+    inside = jnp.logical_and(x >= x0, x <= x_max)
+    return jnp.where(inside, val, outside)
 
 
-def _local_out_rows(
-    plan_samples: int, rows: int, n_dev: int = 1, seed_batch: int = 1
-) -> int:
-    """Rows of the per-device (out_rows, 128) partial-sum output buffer the
-    kernel keeps resident in VMEM: seed_batch x the device-local program
-    count for this block size."""
-    programs, _, _ = plan_pallas_grid(plan_samples, rows)
-    programs = -(-programs // n_dev) * n_dev
-    return seed_batch * (programs // n_dev)
+def table_slope(x, vals, grid):
+    """d/dx of :func:`table_value`'s piecewise-linear interpolant inside
+    [x0, x_max], 0.0 outside — ``jax.grad`` of the XLA backend's interp
+    lookup of the same table, so both backends follow one gradient
+    field."""
+    x0 = grid[0]
+    step = grid[1]
+    x_max = grid[2]
+    n = vals.shape[0]
+    pos = jnp.clip((x - x0) / step, 0.0, np.float32(n - 1))
+    i0 = jnp.minimum(pos.astype(jnp.int32), n - 2)
+    inside = jnp.logical_and(x >= x0, x <= x_max)
+    return jnp.where(inside, (vals[i0 + 1] - vals[i0]) / step, 0.0)
 
 
-def integrate_vmem_fits(
-    k: int,
-    kind: DistKind,
-    n_weight_tables: int = 0,
-    extra_blocks: int = 0,
-    rows: int = BLOCK_ROWS,
-    budget_bytes: int = 16 * 1024 * 1024,
-    out_rows: int = 1,
-    with_stderr: bool = False,
-) -> bool:
-    """Conservative VMEM estimate for a fused integrate kernel: K carried
-    accumulator blocks + sample/uniform temporaries + resident tables,
-    doubled for Mosaic's scoped temporaries/double-buffering.  Measured
-    failure point: K=64 CUSTOM (64 accs x (256,128) f32 = 8 MB) exceeded
-    the 16 MB scoped-vmem limit by 68 KB at compile time; workloads over
-    the budget route to the XLA sweep (which handles any K, like the
-    reference's one GPU path).  The estimate is deliberately conservative
-    near the boundary (it may route a few K values that would just fit to
-    XLA): a compile-time OOM is a hard failure while the fallback is
-    graceful, and the measured failure shows actual scoped usage within
-    ~10% of this model."""
-    acc_rows = _acc_rows(kind, rows)
-    # accumulators + sample/uniform temporaries (+ IS weight blocks via
-    # extra_blocks: p_val/q_val/weight live alongside every eval).
-    # Error-bar kernels carry a second (pilot-shifted sum-of-squares)
-    # accumulator block per function.  The batch-generate loop body
-    # keeps UNROLL_BLOCKS whole sample blocks in flight before the
-    # evaluations start (see the kernel body), charged here on top of
-    # the per-eval temporaries.
-    blocks = (2 * k if with_stderr else k) + 3 + UNROLL_BLOCKS + extra_blocks
-    table_bytes = 0
-    if kind == DistKind.CUSTOM:
-        table_bytes += 2 * rows * LANES * 4  # stratified (value, slope)
-    table_bytes += n_weight_tables * 2 * 16 * LANES * 4  # padded weight tables
-    # The whole (out_rows, 128) partial-sum output buffer also stays
-    # resident (constant index map, one row written per program) — large
-    # seed batches make it a first-order term.
-    out_bytes = out_rows * LANES * 4
-    est = 2 * blocks * acc_rows * LANES * 4 + table_bytes + out_bytes
-    return est <= budget_bytes
+def uniform_table(xs, values):
+    """(values (n,), grid (4,) = [x0, step, x_max, 0]) for
+    :func:`table_value` from a uniform x grid."""
+    xs = jnp.asarray(xs, jnp.float32)
+    values = jnp.asarray(values, jnp.float32)
+    n = values.shape[0]
+    x0 = xs[0]
+    x_max = xs[n - 1]
+    step = (x_max - x0) / jnp.float32(n - 1)
+    return values, jnp.stack([x0, step, x_max, jnp.float32(0.0)])
 
 
-def pick_block_rows(
-    k: int,
-    kind: DistKind,
-    n_weight_tables: int = 0,
-    extra_blocks: int = 0,
-    gapped: bool = False,
-    plan_samples: Optional[int] = None,
-    n_dev: int = 1,
-    seed_batch: int = 1,
-    with_stderr: bool = False,
-    param_batch: bool = False,
-) -> Optional[int]:
-    """Largest block row count whose kernel fits the VMEM budget, or None.
+def prep_inv_table_stratified(x_table, strata: int, with_pdf: bool = False):
+    """Stratified inverse-CDF tables for the integrate kernel.
 
-    High fused-K workloads shrink the block (and, for CUSTOM, the stratum
-    count — see prep_inv_table_stratified) instead of falling off the
-    ~100x XLA table-sampling cliff (measured: K=64 custom 5.8e7 samples/s
-    on the XLA sweep vs 7.3e9 in-kernel at K=32).  Gap-respecting tables
-    are host-built at ``rows // 8`` strata (tables.gapped_stratified_tables
-    takes a segments arg), so gapped blocks shrink too — but stop at 64
-    rows (8 strata x 128 = 1024 u-knots) to keep the gap-snap mass
-    distortion well under the test tolerances.
+    u-space splits into S equal-mass strata; sample position e of every
+    block is statically assigned stratum ``e // (block / S)`` and draws u
+    uniformly within it.  Each stratum gets the same number of samples,
+    so the block mean stays unbiased (proportional allocation) with
+    variance at most the i.i.d. sampler's, and a draw costs one indexed
+    load pair instead of a search.
 
-    ``plan_samples``/``n_dev``/``seed_batch`` size the VMEM-resident
-    output buffer (seed_batch x device-local programs rows); without
-    ``plan_samples`` the minimum one-program buffer is assumed."""
-    candidates, rows = [], BLOCK_ROWS
-    while rows >= (64 if gapped else 8):
-        candidates.append(rows)
-        rows //= 2
-    for rows in candidates:
-        out_rows = (
-            _local_out_rows(plan_samples, rows, n_dev, seed_batch)
-            if plan_samples is not None
-            else seed_batch
-        )
-        if with_stderr:
-            # A sum-of-squares row per partial-sum row, plus the
-            # VMEM-resident pilot table (one row per param-batch rep; a
-            # single shared row for seed-only batches).
-            out_rows = 2 * out_rows + (seed_batch if param_batch else 1)
-        if integrate_vmem_fits(
-            k, kind, n_weight_tables, extra_blocks, rows,
-            out_rows=out_rows, with_stderr=with_stderr,
-        ):
-            return rows
-    return None
-
-
-def prep_inv_table_stratified(
-    x_table, rows: int, segments=None, with_pdf: bool = False
-):
-    """Row-stratified inverse-CDF tables for the integrate kernel.
-
-    u-space splits into S equal-mass strata (S = table segments); block row
-    r is statically assigned stratum ``r // (rows/S)`` and draws u uniformly
-    within it.  Each stratum gets the same number of rows, so the block
-    mean stays unbiased (proportional allocation) with variance at most the
-    i.i.d. sampler's.  The device lookup then needs ONE lane-gather per
-    draw — the per-row stratum is static, so the (rows, 128) value/slope
-    tables are pre-tiled here with 8+ identical consecutive rows (one
-    broadcast row per VMEM tile) — instead of the S-iteration segment scan
-    an i.i.d. draw needs (the 12-iteration device binary search of the
-    reference, src/distribution.rs:128-158, is worse still on TPU).
-
-    Returns (ts, dts), both (rows, 128): per-stratum 128-knot resamplings
-    of the piecewise-linear inverse CDF and their forward differences.
-
-    ``with_pdf=True`` additionally returns ``qs`` (rows, 128): the exact
-    density of THIS sampler at each knot segment, ``du/dx = 1 / (S *
-    (LANES-1) * dts)`` — the reciprocal inverse-CDF slope.  Gathered with
-    the same lane index as the draw, it gives the importance-sampling
-    denominator q(x) for free (one extra gather), with no x-space table
-    lookup and no uniform-grid requirement: this is what keeps
-    paired-knot VEGAS proposals (adaptive.py) fully in-kernel.  For a
-    normalized user pdf it matches the face-value table within the
-    inverse-resampling error; it IS the density the samples were drawn
-    from, so the weighted estimator stays exactly unbiased.
-    """
+    Returns flat (S * 128,) tables (ts, dts): per-stratum 128-knot
+    resamplings of the piecewise-linear inverse CDF and their forward
+    differences.  ``with_pdf=True`` adds ``qs``: the exact density of
+    THIS sampler on each knot segment, ``du/dx = 1 / (S * 127 * dts)`` —
+    loaded with the draw's own index it is the importance-sampling
+    denominator q(x), with no x-space lookup (this keeps irregular-grid
+    VEGAS proposals, adaptive.py, in-kernel)."""
     t = jnp.asarray(x_table, jnp.float32)
     m = t.shape[0]
     if m < 2:
         raise ValueError("inverse-CDF table needs at least 2 knots")
-    if segments is None:
-        # Largest power of two <= min(m // LANES, rows // 8): rows is a
-        # power of two, so this always divides it in groups of 8+ (any
-        # knot count m >= 2 gets an in-kernel stratification).
-        cap = max(1, min(m // LANES, rows // 8))
-        segments = 1 << (cap.bit_length() - 1)
-    if rows % segments != 0 or (rows // segments) < 8:
-        raise ValueError(
-            f"segments ({segments}) must divide {rows} block rows in "
-            "groups of 8+"
-        )
-    # Stratum s, knot j: u = (s + j/(LANES-1)) / S, evaluated against the
-    # m-knot inverse table by pure index arithmetic (uniform u-grid).
-    j = jnp.arange(LANES, dtype=jnp.float32) / jnp.float32(LANES - 1)
-    s = jnp.arange(segments, dtype=jnp.float32).reshape(segments, 1)
-    u = (s + j) / jnp.float32(segments)
+    knots = STRATUM_KNOTS
+    j = jnp.arange(knots, dtype=jnp.float32) / jnp.float32(knots - 1)
+    s = jnp.arange(strata, dtype=jnp.float32).reshape(strata, 1)
+    u = (s + j) / jnp.float32(strata)
     pos = u * jnp.float32(m - 1)
     i0 = jnp.clip(pos.astype(jnp.int32), 0, m - 2)
     frac = pos - i0.astype(jnp.float32)
     t0 = jnp.take(t, i0)
     ts = t0 + frac * (jnp.take(t, i0 + 1) - t0)
     dts = jnp.concatenate(
-        [ts[:, 1:] - ts[:, :-1], jnp.zeros((segments, 1), jnp.float32)],
+        [ts[:, 1:] - ts[:, :-1], jnp.zeros((strata, 1), jnp.float32)],
         axis=1,
     )
-    rep = rows // segments
     if with_pdf:
-        inv_c = jnp.float32(1.0 / (segments * (LANES - 1)))
+        inv_c = jnp.float32(1.0 / (strata * (knots - 1)))
         qs = jnp.where(dts > 0, inv_c / jnp.maximum(dts, 1e-38), 0.0)
-        return (
-            jnp.repeat(ts, rep, axis=0),
-            jnp.repeat(dts, rep, axis=0),
-            jnp.repeat(qs, rep, axis=0),
+        return ts.reshape(-1), dts.reshape(-1), qs.reshape(-1)
+    return ts.reshape(-1), dts.reshape(-1)
+
+
+def _stratified_draw(tables, w, strat_base):
+    """Stratified inverse-CDF draw from within-stratum uniforms ``w``;
+    ``strat_base`` is each position's stratum offset into the flat
+    tables.  Returns (x, q) with q the sampler's density when a qs table
+    rides along, else None."""
+    pos = w * jnp.float32(STRATUM_KNOTS - 1)
+    j = pos.astype(jnp.int32)
+    frac = pos - j.astype(jnp.float32)
+    idx = strat_base + j
+    x = tables[0][idx] + frac * tables[1][idx]
+    q = tables[2][idx] if len(tables) > 2 else None
+    return x, q
+
+
+def transform(kind: DistKind, u, p1, p2):
+    """Inverse-transform samples of an analytic family from uniforms
+    ``u`` ((0, 1] for EXPONENTIAL, [0, 1) otherwise)."""
+    if kind == DistKind.UNIFORM:
+        from ..sampling import next_below_f32
+
+        x = p1 + u * (p2 - p1)
+        # f32 rounding may land on the half-open boundary.
+        return jnp.where(x >= p2, next_below_f32(p2), x)
+    if kind == DistKind.NORMAL:
+        from ..sampling import normal_from_u01
+
+        return p1 + p2 * normal_from_u01(u)
+    if kind == DistKind.EXPONENTIAL:
+        return -jnp.log(jnp.maximum(u, 1e-7)) / p1
+    from ..sampling import ANALYTIC_EXT
+
+    ext = ANALYTIC_EXT.get(kind)
+    if ext is None:
+        raise ValueError(f"Pallas kernel does not support {kind}")
+    return ext.inv_cdf(u, p1, p2).astype(jnp.float32)
+
+
+def _draws(kind, u, p1, p2, tables, strat_base, anti):
+    """[(x, q)] for one block of uniforms: one pair, or the pair at u and
+    its antithetic mirror 1 - u (NORMAL reflects about the mean, the
+    exact mirror of the monotone inverse CDF without a second erf_inv;
+    CUSTOM mirrors within each stratum, which keeps the stratification)."""
+    if kind == DistKind.CUSTOM:
+        out = [_stratified_draw(tables, u, strat_base)]
+        if anti:
+            out.append(_stratified_draw(tables, 1.0 - u, strat_base))
+        return out
+    if anti and kind == DistKind.NORMAL:
+        from ..sampling import normal_from_u01
+
+        z = normal_from_u01(u)
+        return [(p1 + p2 * z, None), (p1 - p2 * z, None)]
+    out = [(transform(kind, u, p1, p2), None)]
+    if anti:
+        out.append((transform(kind, 1.0 - u, p1, p2), None))
+    return out
+
+
+class _Sweep:
+    """Static description of one fused sweep, shared by the kernel and
+    its jnp reference: every draw and every accumulation goes through
+    :meth:`program_sums`, so both see identical samples."""
+
+    def __init__(self, eval_fns, kind, block, loops, method,
+                 is_weight, with_stderr, qmc_seg_bits):
+        self.eval_fns = tuple(eval_fns)
+        self.k = len(eval_fns)
+        self.kind = kind
+        self.block = block
+        self.loops = loops
+        self.method = method
+        self.anti = method == "antithetic"
+        self.with_stderr = with_stderr
+        self.qmc_seg_bits = qmc_seg_bits
+        p_mode, q_mode = is_weight if is_weight is not None else (None, None)
+        self.weighted = is_weight is not None
+        self.p_mode, self.q_mode = p_mode, q_mode
+        self.p_table = p_mode == "table"
+        self.q_table = q_mode == "table"
+        # "sampler": the IS denominator is the CUSTOM proposal's own
+        # sampling density, loaded from the qs table with the draw.
+        self.q_sampler = q_mode == "sampler"
+
+    @property
+    def n_sample_tables(self) -> int:
+        """CUSTOM sampling tables: values, slopes (+ the sampler's pdf)."""
+        if self.kind != DistKind.CUSTOM:
+            return 0
+        return 3 if self.q_sampler else 2
+
+    @property
+    def n_tables(self) -> int:
+        return self.n_sample_tables + 2 * (
+            int(self.p_table) + int(self.q_table)
         )
-    return (
-        jnp.repeat(ts, rep, axis=0),
-        jnp.repeat(dts, rep, axis=0),
-    )
 
+    def _weight(self, x, q_samp, p_tab, q_tab):
+        if not self.weighted:
+            return None
+        p_val = (
+            table_value(x, *p_tab, 0.0)
+            if self.p_table
+            else self.p_mode(x).astype(jnp.float32)
+        )
+        if self.q_sampler:
+            q_val = q_samp
+        elif self.q_table:
+            q_val = table_value(x, *q_tab, 0.0)
+        else:
+            q_val = self.q_mode(x).astype(jnp.float32)
+        # A rounding-edge sample with zero proposal density would poison
+        # the mean with inf/NaN (zero-mass points, so weight 0 is exact).
+        safe_q = jnp.where(q_val > 0, q_val, 1.0)
+        return jnp.where(q_val > 0, p_val / safe_q, 0.0)
 
-def _stratified_sample_from_w(ts_ref, dts_ref, w):
-    """Stratified inverse-CDF draw from within-stratum uniforms ``w``:
-    the row's stratum is baked into the pre-tiled tables, so the lookup
-    is a single equal-shape lane-gather."""
-    pos = w * jnp.float32(LANES - 1)
-    j = pos.astype(jnp.int32)
-    frac = pos - j.astype(jnp.float32)
-    x0 = jnp.take_along_axis(ts_ref[...], j, axis=1)
-    dx = jnp.take_along_axis(dts_ref[...], j, axis=1)
-    return x0 + frac * dx
-
-
-def _stratified_sample(ts_ref, dts_ref, rng, counter, rows):
-    """One stratified inverse-CDF draw per (row, lane)."""
-    w = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-    return _stratified_sample_from_w(ts_ref, dts_ref, w)
-
-
-def _stratified_sample_pdf_from_w(ts_ref, dts_ref, qs_ref, w):
-    """Stratified draw + its own sampling density (the qs table from
-    ``prep_inv_table_stratified(with_pdf=True)``, gathered with the same
-    lane index) — the free in-kernel IS denominator."""
-    pos = w * jnp.float32(LANES - 1)
-    j = pos.astype(jnp.int32)
-    frac = pos - j.astype(jnp.float32)
-    x0 = jnp.take_along_axis(ts_ref[...], j, axis=1)
-    dx = jnp.take_along_axis(dts_ref[...], j, axis=1)
-    q = jnp.take_along_axis(qs_ref[...], j, axis=1)
-    return x0 + frac * dx, q
-
-
-def _qmc_pos(rows):
-    """Row-major (rows, 128) within-block offsets, int32."""
-    return (
-        jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 0)
-        * jnp.int32(LANES)
-        + jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 1)
-    )
-
-
-def _sample_subblocks_qmc(
-    kind: DistKind, p1, p2, block_num, shift,
-    tables=None, rows=BLOCK_ROWS, with_pdf: bool = False,
-):
-    """QMC counterpart of _sample_subblocks: uniforms come from the
-    rotated radical inverse of the global sample index (ops/qmc.py)
-    instead of the PRNG; every transform is identical.  ``block_num`` is
-    the global (program, loop) block counter.  NORMAL inverts the CDF of
-    the 1-D stream directly (sampling.normal_from_u01): the inverse CDF
-    is monotone, so the low-discrepancy structure of vdc(g) carries to
-    the normal samples exactly — better equidistribution than the
-    Box-Muller pair construction this replaced, and ~4% faster.
-    Pure uint32 vector math with the rotation folded in before the float
-    conversion (Mosaic's bitcast is vector-only, so no scalar
-    conversions appear anywhere)."""
-    from .qmc import qmc_u01_halfopen, qmc_u01_open
-
-    s1 = shift
-    if kind == DistKind.NORMAL:
-        from ..sampling import normal_from_u01
-
-        half = rows // 2
-        base = block_num * jnp.int32(rows * LANES)
-        g1 = (base + _qmc_pos(half)).astype(jnp.uint32)
-        g2 = (
-            base + jnp.int32(half * LANES) + _qmc_pos(half)
-        ).astype(jnp.uint32)
-        return [
-            p1 + p2 * normal_from_u01(qmc_u01_halfopen(g1, s1)),
-            p1 + p2 * normal_from_u01(qmc_u01_halfopen(g2, s1)),
-        ]
-
-    # int32 wraps modulo 2^32 like uint32, so the scalar index math stays
-    # int32 (Mosaic scalar casts are limited) and only the final VECTOR
-    # converts to uint32 — a modular, bit-preserving conversion.
-    g = (
-        block_num * jnp.int32(rows * LANES) + _qmc_pos(rows)
-    ).astype(jnp.uint32)
-    if kind == DistKind.UNIFORM:
-        from ..sampling import next_below_f32
-
-        u = qmc_u01_halfopen(g, s1)
-        x = p1 + u * (p2 - p1)
-        return [jnp.where(x >= p2, next_below_f32(jnp.full_like(x, p2)), x)]
-    if kind == DistKind.EXPONENTIAL:
-        u = qmc_u01_open(g, s1)
-        return [-jnp.log(jnp.maximum(u, 1e-7)) / p1]
-    if kind == DistKind.CUSTOM:
-        if with_pdf:
-            ts_ref, dts_ref, qs_ref = tables
-            w = qmc_u01_halfopen(g, s1)
-            return [
-                _stratified_sample_pdf_from_w(ts_ref, dts_ref, qs_ref, w)
-            ]
-        ts_ref, dts_ref = tables
-        w = qmc_u01_halfopen(g, s1)
-        return [_stratified_sample_from_w(ts_ref, dts_ref, w)]
-    from ..sampling import ANALYTIC_EXT
-
-    ext = ANALYTIC_EXT.get(kind)
-    if ext is not None:
-        # Monotone inverse CDFs carry the low-discrepancy structure of
-        # the rotated radical inverse to the samples exactly (same
-        # argument as the NORMAL branch above).
-        u = qmc_u01_halfopen(g, s1)
-        return [ext.inv_cdf(u, p1, p2).astype(jnp.float32)]
-    raise ValueError(f"Pallas QMC does not support {kind}")
-
-
-def _sample_subblocks(
-    kind: DistKind, p1, p2, rng, counter, tables=None, rows=BLOCK_ROWS,
-    with_pdf: bool = False,
-):
-    """Sample rows*128 values as a list of equal-shape sub-blocks
-    (NORMAL returns two half-blocks, keeping the accumulator shapes of
-    the Box-Muller pair construction it replaced, so no concatenate/copy
-    is needed; integrands just run once per sub-block).
-
-    ``with_pdf=True`` (CUSTOM only): each sub-block is an ``(x, q)``
-    pair with q the sampler's own density at x (the third qs table from
-    ``prep_inv_table_stratified(with_pdf=True)``) — the in-kernel IS
-    denominator for irregular-grid proposals."""
-    if kind == DistKind.UNIFORM:
-        from ..sampling import next_below_f32
-
-        u = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-        x = p1 + u * (p2 - p1)
-        # Clamp below max: f32 rounding may land on the half-open boundary
-        # (Mosaic bitcast is vector-only, so decrement the offending lanes).
-        return [jnp.where(x >= p2, next_below_f32(jnp.full_like(x, p2)), x)]
-    if kind == DistKind.NORMAL:
-        # Inverse-CDF normal (sampling.normal_from_u01): one erf_inv per
-        # sample beats the amortised Box-Muller log+sqrt+sin+cos on the
-        # VPU (~4% at K=8 on v5e).  Two half-blocks keep the sub-block
-        # structure (and accumulator shapes) of the pair era.
-        from ..sampling import normal_from_u01
-
-        half = rows // 2
-        u1 = _uniform_halfopen01(rng, (half, LANES), counter, 0)
-        u2 = _uniform_halfopen01(rng, (half, LANES), counter, 1)
-        return [p1 + p2 * normal_from_u01(u1), p1 + p2 * normal_from_u01(u2)]
-    if kind == DistKind.EXPONENTIAL:
-        u = _uniform_open01(rng, (rows, LANES), counter, 0)
-        return [-jnp.log(jnp.maximum(u, 1e-7)) / p1]
-    if kind == DistKind.CUSTOM:
-        if with_pdf:
-            ts_ref, dts_ref, qs_ref = tables
-            w = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-            return [
-                _stratified_sample_pdf_from_w(ts_ref, dts_ref, qs_ref, w)
-            ]
-        ts_ref, dts_ref = tables
-        return [_stratified_sample(ts_ref, dts_ref, rng, counter, rows)]
-    from ..sampling import ANALYTIC_EXT
-
-    ext = ANALYTIC_EXT.get(kind)
-    if ext is not None:
-        # Extended analytic families: one [0, 1) uniform per sample
-        # through the registry's inverse CDF (it clamps u internally).
-        u = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-        return [ext.inv_cdf(u, p1, p2).astype(jnp.float32)]
-    raise ValueError(f"Pallas kernel does not support {kind}")
-
-
-def _sample_subblocks_antithetic(
-    kind: DistKind, p1, p2, rng, counter, tables=None, rows=BLOCK_ROWS,
-    with_pdf: bool = False,
-):
-    """Antithetic counterpart of :func:`_sample_subblocks`: the SAME
-    uniform draws (same shapes, counters and tags, so the RNG stream
-    structure is unchanged), each mapped through the monotone transform
-    at ``u`` AND its mirror ``1 - u`` — element (r, l) of sub-block
-    2i+1 is the exact antithetic partner of element (r, l) of sub-block
-    2i.  Each call therefore yields 2x the samples of the plain path
-    from half the RNG draws per sample; the caller halves the block
-    loop count to keep the total.  CUSTOM mirrors WITHIN each row's
-    stratum (the stratum is baked into the pre-tiled tables), which
-    preserves the stratification and pairs antithetically inside each
-    equal-mass cell."""
-    if kind == DistKind.UNIFORM:
-        from ..sampling import next_below_f32
-
-        u = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-
-        def aff(uu):
-            x = p1 + uu * (p2 - p1)
-            return jnp.where(
-                x >= p2, next_below_f32(jnp.full_like(x, p2)), x
+    def program_sums(self, seed_word, program, p1, p2, tables, pilots):
+        """Per-function sums (and pilot-shifted square sums) over one
+        program's ``loops`` blocks; ``program`` is the global program
+        index.  ``tables`` are kernel refs or arrays alike."""
+        tables = list(tables)
+        samp_tabs = tuple(tables[:self.n_sample_tables])
+        rest = tables[self.n_sample_tables:]
+        p_tab = (rest.pop(0), rest.pop(0)) if self.p_table else None
+        q_tab = (rest.pop(0), rest.pop(0)) if self.q_table else None
+        block, k = self.block, self.k
+        pos = positions(block)
+        strat_base = None
+        if self.kind == DistKind.CUSTOM:
+            # The flat sampling tables hold STRATUM_KNOTS knots per stratum.
+            per = block // (samp_tabs[0].shape[0] // STRATUM_KNOTS)
+            strat_base = (
+                jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
+                // jnp.int32(per)
+            ) * jnp.int32(STRATUM_KNOTS)
+        use_open = self.kind == DistKind.EXPONENTIAL
+        if self.method == "qmc":
+            from .qmc import (
+                derive_segment_shift,
+                derive_shift,
+                qmc_u01_halfopen,
+                qmc_u01_open,
             )
 
-        return [aff(u), aff(1.0 - u)]
-    if kind == DistKind.NORMAL:
-        from ..sampling import normal_from_u01
+            shift = derive_shift(seed_word, 1)
+        else:
+            rng = CounterRng(seed_word, program)
 
-        half = rows // 2
-        u1 = _uniform_halfopen01(rng, (half, LANES), counter, 0)
-        u2 = _uniform_halfopen01(rng, (half, LANES), counter, 1)
-        z1 = normal_from_u01(u1)
-        z2 = normal_from_u01(u2)
-        # Reflect z about the mean: the exact mirror of the monotone
-        # inverse CDF, without a second erf_inv.
-        return [p1 + p2 * z1, p1 - p2 * z1, p1 + p2 * z2, p1 - p2 * z2]
-    if kind == DistKind.EXPONENTIAL:
-        u = _uniform_open01(rng, (rows, LANES), counter, 0)
-        return [
-            -jnp.log(jnp.maximum(u, 1e-7)) / p1,
-            -jnp.log(jnp.maximum(1.0 - u, 1e-7)) / p1,
-        ]
-    if kind == DistKind.CUSTOM:
-        if with_pdf:
-            ts_ref, dts_ref, qs_ref = tables
-            w = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-            return [
-                _stratified_sample_pdf_from_w(
-                    ts_ref, dts_ref, qs_ref, w
-                ),
-                _stratified_sample_pdf_from_w(
-                    ts_ref, dts_ref, qs_ref, 1.0 - w
-                ),
-            ]
-        ts_ref, dts_ref = tables
-        w = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-        return [
-            _stratified_sample_from_w(ts_ref, dts_ref, w),
-            _stratified_sample_from_w(ts_ref, dts_ref, 1.0 - w),
-        ]
-    from ..sampling import ANALYTIC_EXT
+        def uniforms(i):
+            if self.method != "qmc":
+                bits = rng.bits(pos, i)
+                return u01_open(bits) if use_open else u01_halfopen(bits)
+            b = program * jnp.int32(self.loops) + i
+            shift_b = shift
+            if self.qmc_seg_bits is not None:
+                # Runs past one 2^32-point cycle split into segments, each
+                # under its own seed-derived rotation.
+                seg = b >> self.qmc_seg_bits
+                b = b & ((1 << self.qmc_seg_bits) - 1)
+                shift_b = derive_segment_shift(shift, seg)
+            g = b.astype(jnp.uint32) * jnp.uint32(block) + pos
+            return (
+                qmc_u01_open(g, shift_b) if use_open
+                else qmc_u01_halfopen(g, shift_b)
+            )
 
-    ext = ANALYTIC_EXT.get(kind)
-    if ext is not None:
-        u = _uniform_halfopen01(rng, (rows, LANES), counter, 0)
-        return [
-            ext.inv_cdf(u, p1, p2).astype(jnp.float32),
-            ext.inv_cdf(1.0 - u, p1, p2).astype(jnp.float32),
-        ]
-    raise ValueError(f"Pallas kernel does not support {kind}")
+        def body(i, carry):
+            accs, sqs = list(carry[0]), list(carry[1])
+            draws = _draws(
+                self.kind, uniforms(i), p1, p2, samp_tabs, strat_base,
+                self.anti,
+            )
+            vals = []
+            for x, q in draws:
+                w = self._weight(x, q, p_tab, q_tab)
+                vs = []
+                for f in self.eval_fns:
+                    v = f(x).astype(jnp.float32)
+                    vs.append(v if w is None else v * w)
+                vals.append(vs)
+            for j in range(k):
+                for vs in vals:
+                    accs[j] = accs[j] + vs[j]
+                if self.with_stderr:
+                    # Antithetic squares are of the PAIR MEAN (the
+                    # estimator's iid unit), so the error bar sees the
+                    # negative within-pair covariance.
+                    if self.anti:
+                        d = 0.5 * (vals[0][j] + vals[1][j]) - pilots[j]
+                        sqs[j] = sqs[j] + d * d
+                    else:
+                        for vs in vals:
+                            d = vs[j] - pilots[j]
+                            sqs[j] = sqs[j] + d * d
+            return tuple(accs), tuple(sqs)
 
-
-def _acc_rows(kind: DistKind, rows: int = BLOCK_ROWS) -> int:
-    return rows // 2 if kind == DistKind.NORMAL else rows
-
-
-def prep_inv_table(x_table):
-    """Inverse-CDF table + forward differences, tiled (SEGMENTS, 128) for
-    the segment lane-gather lookup (shared by the integrate and MCMC
-    kernels)."""
-    m = x_table.shape[0]
-    if m % LANES != 0:
-        raise ValueError(
-            f"inverse-CDF table size must be a multiple of {LANES}"
-        )
-    t = jnp.asarray(x_table, jnp.float32)
-    dx = jnp.concatenate([t[1:] - t[:-1], jnp.zeros(1, jnp.float32)])
-    return (t.reshape(m // LANES, LANES), dx.reshape(m // LANES, LANES))
+        zero = jnp.zeros((block,), jnp.float32)
+        init = ((zero,) * k, (zero,) * (k if self.with_stderr else 0))
+        accs, sqs = jax.lax.fori_loop(0, self.loops, body, init)
+        return [jnp.sum(a) for a in accs], [jnp.sum(s) for s in sqs]
 
 
-def pad_uniform_table(xs, values, fill):
-    """Tile a uniform-x-grid value table for in-kernel lookup: pad values
-    to a lane multiple with ``fill`` (the padding extends the grid past
-    x_max, which the in-kernel inside-gate already excludes) and return
-    (values (S,128), dx (S,128), grid scalars (1,4) = [x0, step, x_max, 0])."""
-    n = values.shape[0]
-    x0 = xs[0]
-    x_max = xs[n - 1]
-    step = (x_max - x0) / jnp.float32(n - 1)
-    pad = (-n) % LANES
-    vals = (
-        jnp.concatenate([values, jnp.full((pad,), fill, jnp.float32)])
-        if pad
-        else values
-    )
-    dx = jnp.concatenate([vals[1:] - vals[:-1], jnp.zeros(1, jnp.float32)])
-    grid = jnp.stack([x0, step, x_max, jnp.float32(0.0)]).reshape(1, 4)
-    seg = (n + pad) // LANES
-    return vals.reshape(seg, LANES), dx.reshape(seg, LANES), grid
+def _row(values, width: int):
+    """Scalars -> one (width,) row (zeros past the values)."""
+    col = jax.lax.broadcasted_iota(jnp.int32, (width,), 0)
+    row = jnp.zeros((width,), jnp.float32)
+    for i, v in enumerate(values):
+        row = jnp.where(col == i, v, row)
+    return row
 
 
-def uniform_table_value(x, tab, rows, outside, max_unroll_segments=0):
-    """Interpolated lookup of ``x`` against a pad_uniform_table() trio;
-    ``outside`` outside [x0, x_max] (0.0 for PDFs, -100 for log-PDFs —
-    reference conventions, src/distribution.rs:173-281, 367-475).
-
-    Defaults to the fori_loop segment scan: these lookups run inside the
-    integrate kernel's UNROLL_BLOCKS-deep eval chain, where the unrolled
-    scan keeps every segment's gather temporaries live on the Mosaic
-    stack — measured compile-OOM at 34.6 MB scoped VMEM (16 MB limit)
-    on a 16-segment weight table with k=2 + stderr accumulators; the
-    loop form bounds the stack at one segment's temporaries.
-
-    ``max_unroll_segments``: tables with at most this many 128-knot
-    segments use the UNROLLED scan instead — the fori_loop costs a
-    carry store/reload per segment, which dominates a 1-2-segment
-    lookup.  Safe only where the caller's in-flight temporaries are
-    small (the MCMC kernels: chain blocks are <= 64 rows and the step
-    unroll is bounded)."""
-    v_ref, dx_ref, grid_ref = tab
-    x0 = grid_ref[0, 0]
-    step = grid_ref[0, 1]
-    x_max = grid_ref[0, 2]
-    n_pad = v_ref.shape[0] * LANES
-    pos = (x - x0) / step
-    i0 = jnp.clip(pos.astype(jnp.int32), 0, n_pad - 2)
-    frac = jnp.clip(pos - i0.astype(jnp.float32), 0.0, 1.0)
-    lookup = (
-        _table_lookup
-        # A 1-segment table always unrolls (one bare gather beats a
-        # 1-iteration fori_loop's carry store/reload at any caller's
-        # VMEM pressure).
-        if v_ref.shape[0] <= max(max_unroll_segments, 1)
-        else _table_lookup_loop
-    )
-    val = lookup(v_ref, dx_ref, i0, frac, rows)
-    inside = jnp.logical_and(x >= x0, x <= x_max)
-    return jnp.where(inside, val, outside)
-
-
-def uniform_table_slope(x, tab, rows, max_unroll_segments=0):
-    """d/dx of :func:`uniform_table_value`'s piecewise-linear
-    interpolant: the gathered forward difference / grid step inside
-    [x0, x_max], 0.0 outside (the derivative of the constant ``outside``
-    arm of the where) — exactly ``jax.grad`` of the XLA backend's interp
-    log-pdf lookup (ops/mcmc_xla targets its autodiff at the same
-    table), so in-kernel HMC on CUSTOM table targets follows the same
-    piecewise-constant gradient field.  One single-table lane-gather per
-    128-knot segment."""
-    v_ref, dx_ref, grid_ref = tab
-    x0 = grid_ref[0, 0]
-    step = grid_ref[0, 1]
-    x_max = grid_ref[0, 2]
-    n_pad = dx_ref.shape[0] * LANES
-    pos = (x - x0) / step
-    i0 = jnp.clip(pos.astype(jnp.int32), 0, n_pad - 2)
-    dxg = _table_gather(dx_ref, i0, rows, max_unroll_segments)
-    inside = jnp.logical_and(x >= x0, x <= x_max)
-    return jnp.where(inside, dxg / step, 0.0)
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def build_integrate_fn_pallas(
@@ -781,77 +482,63 @@ def build_integrate_fn_pallas(
     plan: IntegratePlan,
     mesh: Optional[jax.sharding.Mesh] = None,
     axis_name: str = "mc",
-    interpret: bool = False,
+    interpret: Optional[bool] = None,
     is_weight=None,
     gapped_tables: bool = False,
     seed_batch: int = 1,
     method: str = "mc",
     param_batch: bool = False,
     with_stderr: bool = False,
-    block_rows: Optional[int] = None,
+    block: Optional[int] = None,
+    reference: bool = False,
 ):
     """Build a jitted ``(seed, params, x_table, cdf_table[, p_x, p_pdf]
-    [, q_x, q_pdf]) -> (K,) float32`` program running the fused Pallas
-    kernel.  The cdf_table arg is accepted for signature parity with the
-    XLA backend but unused.  With a mesh, programs split across devices and
-    partials combine with psum over ICI.
+    [, q_x, q_pdf]) -> (K,) float32`` program running the fused kernel.
+    The cdf_table arg is accepted for signature parity with the XLA
+    backend and unused (except as the slope table of gapped tables).
+    With a mesh, programs split across devices and partial sums combine
+    with psum.
+
+    ``interpret``: None picks :func:`interpret_mode` from the platform.
+
+    ``reference=True``: the same program computed by the plain-jnp
+    reference instead of the kernel — every program's
+    :meth:`_Sweep.program_sums` vectorised by XLA over the grid, with
+    the same counter stream, so kernel and reference differ only in
+    summation order and math-library rounding (single device only).
 
     ``is_weight``: optional importance-sampling weight descriptor
-    ``(p_mode, q_mode)`` with each mode either a traced scalar pdf callable
-    or the string ``"table"`` — table modes append (x_grid, pdf_values)
-    runtime args (uniform x-grids required) and evaluate p(x)/q(x) in-kernel
-    via the segment lane-gather lookup, with the 0-outside-support
-    convention (reference src/distribution.rs:173-281).  The weight
-    multiplies every integrand, so all K functions see identical weights on
-    shared samples (reference __init__.py:893-905).
+    ``(p_mode, q_mode)``, each a traced scalar pdf callable or
+    ``"table"`` (appends uniform-grid (x_grid, pdf_values) runtime args,
+    evaluated in-kernel with the 0-outside-support convention, reference
+    src/distribution.rs:173-281); ``q_mode="sampler"`` takes the CUSTOM
+    proposal's own sampling density.  The weight multiplies every
+    integrand, so all K functions see identical weights on shared
+    samples (reference __init__.py:893-905).
 
-    ``gapped_tables``: the x_table/cdf_table runtime args are host-built
-    (segments, 128) stratified (value, slope) tables from
-    ``tables.gapped_stratified_tables`` — zero-density-span distributions
-    whose exact inverse is discontinuous; the decoupled slope table jumps
-    each gap exactly at a knot so no sample ever lands inside a gap
-    (reference bar: the knot-exact device binary search,
-    src/distribution.rs:128-158).
+    ``gapped_tables``: the x_table/cdf_table args are host-built
+    (strata, 128) stratified (value, slope) tables from
+    ``tables.gapped_stratified_tables`` at ``run.strata`` strata — the
+    decoupled slope table jumps each zero-density gap exactly at a knot,
+    so no sample lands inside a gap.
 
     ``seed_batch=R``: the seed arg becomes an (R,) vector and the program
-    returns (R, K) — R independent sweeps batched as a leading GRID
-    dimension (traced once, not unrolled), so arbitrarily large serving
-    batches cost one dispatch with no program-size growth.  Each batch
-    element seeds exactly like the unbatched program (same (seed, program)
-    words), so results are bit-equal to R single-seed calls.
+    returns (R, K) — R independent sweeps as a leading grid dimension,
+    each seeded exactly like the unbatched program.  ``param_batch``:
+    params become (R, 2), one family-parameter row per batch element
+    (analytic families, no IS weights).
 
     ``method="qmc"``: uniforms come from the seed-rotated radical inverse
-    of the global sample index (ops/qmc.py) instead of the PRNG — same
-    transforms, ~O(log N / N) convergence on smooth integrands.  Batch
-    elements become independent rotations of one low-discrepancy set.
+    of the global sample index (ops/qmc.py); ``"antithetic"``: each draw
+    is used at u and 1 - u.
 
-    ``param_batch=True``: the params arg becomes (seed_batch, 2) — each
-    batch element samples its OWN family parameters (one SMEM row per
-    grid rep), so a single compiled program serves a whole parameter
-    sweep (e.g. one dispatch across a volatility surface).  Analytic
-    families only: CUSTOM distributions sample from host-built tables,
-    which are per-distribution artifacts, and IS weight closures bake
-    distribution parameters at trace time.
-
-    ``with_stderr=True`` (seed and param batches both work — the VMEM
-    pilot table carries one row per param-batch rep, a single shared
-    row otherwise, and each element gets its own (values, stderrs)
-    pair; with ``is_weight`` the pilot means are weighted, so error
-    bars measure the WEIGHTED estimators f(x) p(x)/q(x), same as the
-    XLA sweep):
-    the kernel carries a second accumulator block per function summing
-    pilot-shifted squares ``(f(x) - pilot)^2`` and the program returns
-    ``(means, stderrs)`` with the standard MC error formula — error
-    bars stay on the fused-kernel fast path instead of pricing the run
-    onto the XLA sweep.  The pilot is a per-function mean over a
-    deterministic quantile grid of the sampling distribution, computed
-    identically on every device OUTSIDE the kernel (so partial squares
-    psum consistently); any fixed shift c keeps
-    ``Var[f] = E[(f-c)^2] - (mean-c)^2`` exact, and a pilot ~ mean
-    removes the float32 cancellation of the naive one-pass formula
-    (same design as the XLA sweep's chunk-0 pilot).  The VALUE
-    accumulators are untouched, so means stay bit-equal to the plain
-    kernel's."""
+    ``with_stderr=True``: the kernel also sums pilot-shifted squares
+    ``(f(x) - pilot)^2`` and the program returns ``(means, stderrs)``.
+    The pilot is a per-function mean over a deterministic quantile grid
+    of the sampling distribution, computed outside the kernel; any fixed
+    shift c keeps ``Var[f] = E[(f-c)^2] - (mean-c)^2`` exact and a pilot
+    near the mean avoids float32 cancellation.  Value sums are
+    untouched, so means equal the plain kernel's."""
     if method not in ("mc", "qmc", "antithetic"):
         raise ValueError(
             f"method must be 'mc', 'qmc' or 'antithetic', got {method!r}"
@@ -867,78 +554,30 @@ def build_integrate_fn_pallas(
                 "weights (weight closures bake distribution parameters)"
             )
     k = len(eval_fns)
-    if k > LANES:
-        raise ValueError(f"at most {LANES} fused functions supported")
+    if k > MAX_FUSED:
+        raise ValueError(f"at most {MAX_FUSED} fused functions supported")
     if not pallas_supports(kind):
         raise ValueError(f"Pallas backend does not support {kind}")
-    # Traced trig inside these integrands resolves to the polynomial
-    # kernels (fast_math): ~6x cheaper than Mosaic's intrinsics at equal
-    # f32 accuracy over MC sample ranges.  Applies to the kernel body
-    # AND the stderr pilot evaluation below, so pilots shift by exactly
-    # the in-kernel f.
-    from .fast_math import kernelize
-
-    eval_fns = tuple(kernelize(f) for f in eval_fns)
     is_custom = kind == DistKind.CUSTOM
-    p_mode, q_mode = is_weight if is_weight is not None else (None, None)
-    p_table = p_mode == "table"
-    q_table = q_mode == "table"
-    # "sampler": the IS denominator is the CUSTOM proposal's own sampling
-    # density, gathered from the stratified tables' qs column during the
-    # draw (prep_inv_table_stratified(with_pdf=True)) — no x-space
-    # lookup, no uniform-grid requirement.  The in-kernel path for
-    # irregular-grid (e.g. paired-knot VEGAS) proposals.
-    q_sampler = q_mode == "sampler"
-    if q_sampler and (not is_custom or gapped_tables):
+    if is_weight is not None and is_weight[1] == "sampler" and (
+        not is_custom or gapped_tables
+    ):
         raise ValueError(
             "sampler-mode IS weights need a non-gapped CUSTOM proposal"
         )
+    if reference and mesh is not None:
+        raise ValueError("the jnp reference runs on a single device")
+    if interpret is None and not reference:
+        interpret = interpret_mode()
 
     n_dev = 1 if mesh is None else mesh.size
-    # Block row count fitted to the VMEM budget (shrinks for high K so
-    # fine-histogram-style workloads stay on the kernel path); the budget
-    # includes the seed_batch x programs output buffer.  An explicit
-    # ``block_rows`` pins the choice — the K>128 multi-pass driver uses
-    # it so every pass shares one grid and therefore one sample stream.
-    # Antithetic blocks yield 2x samples (each draw used at u and 1-u),
-    # so the grid plans over half the requested count.
-    grid_samples = (
-        -(-plan.actual_samples // 2) if anti else plan.actual_samples
-    )
-    if block_rows is None:
-        block_rows = pick_block_rows(
-            k, kind,
-            n_weight_tables=int(p_table) + int(q_table),
-            # +1 sampler block: the resident qs table and its gather temp.
-            extra_blocks=(
-                (3 + int(q_sampler)) if is_weight is not None else 0
-            ),
-            gapped=gapped_tables,
-            plan_samples=grid_samples,
-            n_dev=n_dev,
-            seed_batch=seed_batch,
-            with_stderr=with_stderr,
-            param_batch=param_batch,
-        )
-    if block_rows is None:
-        raise ValueError(
-            "fused workload exceeds the kernel VMEM budget; use the XLA "
-            "backend"
-        )
-
-    programs, loops, actual = plan_pallas_grid(grid_samples, block_rows)
-    # Shape the grid to divide evenly over devices.
+    if block is None:
+        block = pick_block(k, with_stderr)
+    # Antithetic blocks yield 2x samples, so the grid plans over half.
+    grid_samples = -(-plan.actual_samples // 2) if anti else plan.actual_samples
+    programs, loops, _ = plan_pallas_grid(grid_samples, block)
     programs = -(-programs // n_dev) * n_dev
-    # Round loops up to an unroll multiple (equal-weight rounded-up
-    # semantics, same as every other grid dimension) so each fori_loop
-    # iteration processes exactly UNROLL_BLOCKS blocks.  Antithetic
-    # halves the unroll: each generated block carries its mirror, so the
-    # in-flight sample VMEM per iteration stays at the plain path's.
-    unroll = min(
-        max(1, UNROLL_BLOCKS // 2) if anti else UNROLL_BLOCKS, loops
-    )
-    loops = -(-loops // unroll) * unroll
-    actual = programs * loops * block_rows * LANES * (2 if anti else 1)
+    actual = programs * loops * block * (2 if anti else 1)
     local_programs = programs // n_dev
 
     qmc_seg_bits = None
@@ -951,292 +590,106 @@ def build_integrate_fn_pallas(
                 "QMC block counter exceeds int32; reduce n_samples "
                 f"(requested {actual} samples in {total_blocks} blocks)"
             )
-        block_elems = block_rows * LANES
-        assert block_elems & (block_elems - 1) == 0
         if actual >= _qmc.QMC_MAX_SAMPLES:
-            # Auto-split into full 2^32-point vdc cycles, each under its
-            # own seed-derived rotation (qmc.derive_segment_shift):
-            # block b maps to segment b >> qmc_seg_bits and local block
-            # b & (2^bits - 1) by pure power-of-two index arithmetic,
-            # so one call scales past the uint32 counter with no user
-            # seed management.
+            # Block b maps to segment b >> bits and local block
+            # b & (2^bits - 1): each segment is one full 2^32-point cycle.
             qmc_seg_bits = max(
-                0, (_qmc.QMC_MAX_SAMPLES // block_elems).bit_length() - 1
+                0, (_qmc.QMC_MAX_SAMPLES // block).bit_length() - 1
             )
 
-    rng_factory = CounterRng if interpret else HardwareRng
+    sweep = _Sweep(
+        eval_fns, kind, block, loops, method, is_weight, with_stderr,
+        qmc_seg_bits,
+    )
+    width = _pow2(k)
 
-    def kernel(seed_ref, params_ref, pid_base_ref, *rest):
+    def kernel(seed_ref, params_ref, base_ref, *rest):
         rest = list(rest)
         pilot_ref = rest.pop(0) if with_stderr else None
-        n_tab = (3 if q_sampler else 2) if is_custom else 0
-        tables = tuple(rest.pop(0) for _ in range(n_tab)) or None
-        p_tab = (
-            (rest.pop(0), rest.pop(0), rest.pop(0)) if p_table else None
-        )
-        q_tab = (
-            (rest.pop(0), rest.pop(0), rest.pop(0)) if q_table else None
-        )
-        (out_ref,) = rest
+        tables = rest[: sweep.n_tables]
+        outs = rest[sweep.n_tables:]
         rep = pl.program_id(0)
         pid = pl.program_id(1)
-        if with_stderr:
-            # Per-function pilot scalars for this rep, extracted once
-            # before the loop (the pilot table is a VMEM (rows, 128)
-            # array — one row per param-batch rep, a single shared row
-            # otherwise).
-            prow_p = rep if param_batch else 0
-            pilot_row = pilot_ref[pl.ds(prow_p, 1), :]
-            colk = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-            pilots = [
-                jnp.sum(jnp.where(colk == j, pilot_row, 0.0))
-                for j in range(k)
-            ]
-        if method == "qmc":
-            from .qmc import derive_shift
-
-            seed_w = seed_ref[0, rep]
-            shift = derive_shift(seed_w, 1)
-            rng = None
-        else:
-            rng = rng_factory()
-            rng.seed(seed_ref[0, rep], pid_base_ref[0, 0] + pid)
         prow = rep if param_batch else 0
-        p1 = params_ref[prow, 0]
-        p2 = params_ref[prow, 1]
-        rows = _acc_rows(kind, block_rows)
-
-        def weight(x, q_samp=None):
-            if is_weight is None:
-                return None
-            p_val = (
-                uniform_table_value(x, p_tab, rows, 0.0)
-                if p_table
-                else p_mode(x).astype(jnp.float32)
-            )
-            if q_sampler:
-                # The draw's own density, gathered during sampling.
-                q_val = q_samp
-            else:
-                q_val = (
-                    uniform_table_value(x, q_tab, rows, 0.0)
-                    if q_table
-                    else q_mode(x).astype(jnp.float32)
-                )
-            # q > 0 guard: a rounding-edge sample with zero proposal
-            # density would otherwise poison the whole mean with inf/NaN
-            # (zero-mass points, so weight 0 is exact).
-            safe_q = jnp.where(q_val > 0, q_val, 1.0)
-            return jnp.where(q_val > 0, p_val / safe_q, 0.0)
-
-        def body(i, carry):
-            # ``unroll`` blocks per iteration at fixed carry size: the
-            # carried accumulators are loaded/stored once per ITERATION,
-            # so this divides the dominant per-iteration loop-carry cost
-            # (see UNROLL_BLOCKS).  All blocks are generated BEFORE any
-            # integrand runs: the sampling chains (RNG bits, erf_inv,
-            # table gathers) are mutually independent, so batching them
-            # ahead of the evaluations hands Mosaic the ILP to overlap
-            # sampling with eval math — measured 23.8 vs 29.8 ps/sample
-            # on the K=8 headline against a generate-consume-per-block
-            # shape.  The RNG draw order is unchanged (evaluations draw
-            # nothing), so streams stay bit-identical either way; the
-            # in-flight sample blocks are charged to the VMEM model via
-            # its unroll term (integrate_vmem_fits).
-            accs = list(carry[:k])
-            sqs = list(carry[k:])
-            subs = []
-            for u in range(unroll):
-                blk = i * jnp.int32(unroll) + jnp.int32(u)
-                if method == "qmc":
-                    b = (
-                        pid_base_ref[0, 0] + pid
-                    ) * jnp.int32(loops) + blk
-                    if qmc_seg_bits is not None:
-                        from .qmc import derive_segment_shift
-
-                        seg = b >> qmc_seg_bits
-                        b = b & ((1 << qmc_seg_bits) - 1)
-                        shift_b = derive_segment_shift(shift, seg)
-                    else:
-                        shift_b = shift
-                    subs += _sample_subblocks_qmc(
-                        kind, p1, p2, b, shift_b, tables, block_rows,
-                        with_pdf=q_sampler,
-                    )
-                elif anti:
-                    subs += _sample_subblocks_antithetic(
-                        kind, p1, p2, rng, blk, tables, block_rows,
-                        with_pdf=q_sampler,
-                    )
-                else:
-                    subs += _sample_subblocks(
-                        kind, p1, p2, rng, blk, tables, block_rows,
-                        with_pdf=q_sampler,
-                    )
-            if q_sampler:
-                # Sampler-mode sub-blocks are (x, q) pairs.
-                subs_q = [s[1] for s in subs]
-                subs = [s[0] for s in subs]
-            else:
-                subs_q = [None] * len(subs)
-            if anti and with_stderr:
-                # Antithetic sub-blocks come in adjacent mirror pairs;
-                # squares accumulate on the PAIR MEAN (the estimator's
-                # iid unit), so the error bar captures the negative
-                # within-pair covariance the method exists to exploit.
-                # The value accumulators still add both members, keeping
-                # means bit-equal to the stderr-off antithetic kernel.
-                for x1, x2, qs1, qs2 in zip(
-                    subs[0::2], subs[1::2], subs_q[0::2], subs_q[1::2]
-                ):
-                    w1 = weight(x1, qs1)
-                    w2 = weight(x2, qs2)
-                    for j, f in enumerate(eval_fns):
-                        v1 = f(x1).astype(jnp.float32)
-                        v2 = f(x2).astype(jnp.float32)
-                        if w1 is not None:
-                            v1 = v1 * w1
-                            v2 = v2 * w2
-                        # Two separate adds, matching the stderr-off
-                        # loop's accumulation order bit-for-bit.
-                        accs[j] = accs[j] + v1
-                        accs[j] = accs[j] + v2
-                        d = 0.5 * (v1 + v2) - pilots[j]
-                        sqs[j] = sqs[j] + d * d
-                return tuple(accs) + tuple(sqs)
-            for x, q_s in zip(subs, subs_q):
-                w = weight(x, q_s)
-                for j, f in enumerate(eval_fns):
-                    v = f(x).astype(jnp.float32)
-                    if w is not None:
-                        v = v * w
-                    accs[j] = accs[j] + v
-                    if with_stderr:
-                        d = v - pilots[j]
-                        sqs[j] = sqs[j] + d * d
-            return tuple(accs) + tuple(sqs)
-
-        n_blocks = 2 * k if with_stderr else k
-        init = tuple(
-            jnp.zeros((_acc_rows(kind, block_rows), LANES), jnp.float32)
-            for _ in range(n_blocks)
+        pilots = (
+            [pilot_ref[prow, j] for j in range(k)] if with_stderr else None
         )
-        carry = jax.lax.fori_loop(0, loops // unroll, body, init)
-        accs = carry[:k]
-
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-        row = jnp.zeros((1, LANES), jnp.float32)
-        for i, acc in enumerate(accs):
-            row = jnp.where(col == i, jnp.sum(acc), row)
-        out_ref[pl.ds(rep * local_programs + pid, 1), :] = row
+        sums, sqs = sweep.program_sums(
+            seed_ref[rep], base_ref[0] + pid,
+            params_ref[prow, 0], params_ref[prow, 1], tables, pilots,
+        )
+        outs[0][...] = _row(sums, width)
         if with_stderr:
-            # Squares rows live in the second half of the output buffer,
-            # mirroring the sums-row layout.
-            rowq = jnp.zeros((1, LANES), jnp.float32)
-            for i, sq in enumerate(carry[k:]):
-                rowq = jnp.where(col == i, jnp.sum(sq), rowq)
-            out_ref[
-                pl.ds(
-                    seed_batch * local_programs
-                    + rep * local_programs
-                    + pid,
-                    1,
-                ),
-                :,
-            ] = rowq
+            outs[1][...] = _row(sqs, width)
 
-    smem_seeds = pl.BlockSpec(
-        (1, seed_batch), lambda r, i: (0, 0), memory_space=pltpu.SMEM
-    )
-    smem_scalar = pl.BlockSpec(
-        (1, 1), lambda r, i: (0, 0), memory_space=pltpu.SMEM
-    )
-    # Param-batched programs keep the WHOLE (R, 2) array resident in SMEM
-    # and index it by rep inside the kernel (Mosaic requires SMEM blocks
-    # to span the array, like the seed vector above).
-    smem_params = pl.BlockSpec(
-        (seed_batch if param_batch else 1, 2),
-        lambda r, i: (0, 0),
-        memory_space=pltpu.SMEM,
-    )
-    smem_grid = pl.BlockSpec(
-        (1, 4), lambda r, i: (0, 0), memory_space=pltpu.SMEM
-    )
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out_rows = seed_batch * local_programs
-    total_out_rows = 2 * out_rows if with_stderr else out_rows
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda r, i, nd=a.ndim: (0,) * nd)
 
-    def pallas_sweep(seed, params, pid_base, *tables):
-        # With stderr, tables[0] is the (rows, 128) VMEM pilot table.
-        in_specs = [smem_seeds, smem_params, smem_scalar]
-        if with_stderr:
-            in_specs.append(vmem)
-        if is_custom:
-            in_specs += [vmem, vmem] + ([vmem] if q_sampler else [])
-        for flag in (p_table, q_table):
-            if flag:
-                in_specs += [vmem, vmem, smem_grid]
-        out = pl.pallas_call(
+    def pallas_sweep(seed, params, base, *tables):
+        """(R, K) sums (and square sums) over this device's programs."""
+        in_specs = [whole(a) for a in (seed, params, base, *tables)]
+        row_spec = pl.BlockSpec((None, None, width), lambda r, i: (r, i, 0))
+        shape = jax.ShapeDtypeStruct(
+            (seed_batch, local_programs, width), jnp.float32
+        )
+        n_out = 2 if with_stderr else 1
+        outs = pl.pallas_call(
             kernel,
             grid=(seed_batch, local_programs),
             in_specs=in_specs,
-            # The whole (R*programs, 128) partial-sum buffer stays resident
-            # in VMEM; each program writes its own disjoint row (race-free
-            # by construction, like the reference's output[idx*K+i] slots).
-            out_specs=pl.BlockSpec(
-                (total_out_rows, LANES),
-                lambda r, i: (0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            out_shape=jax.ShapeDtypeStruct(
-                (total_out_rows, LANES), jnp.float32
-            ),
+            out_specs=[row_spec] * n_out,
+            out_shape=[shape] * n_out,
             interpret=interpret,
-        )(seed, params, pid_base, *tables)
-        if with_stderr:
-            # (R, K) per-batch-element sums and shifted-square sums.
-            return (
-                jnp.sum(
-                    out[:out_rows, :k].reshape(
-                        seed_batch, local_programs, k
-                    ),
-                    axis=1,
-                ),
-                jnp.sum(
-                    out[out_rows:, :k].reshape(
-                        seed_batch, local_programs, k
-                    ),
-                    axis=1,
-                ),
+            backend="triton",
+            compiler_params=compiler_params(),
+            name="mc_integrate",
+        )(seed, params, base, *tables)
+        return tuple(jnp.sum(o[:, :, :k], axis=1) for o in outs)
+
+    def reference_sweep(seed, params, base, *tables):
+        """The same sums, computed by XLA from the same program_sums."""
+        pilot = tables[0] if with_stderr else None
+        tables = tables[1:] if with_stderr else tables
+
+        def one(rep):
+            prow = rep if param_batch else 0
+            pilots = (
+                [pilot[prow, j] for j in range(k)] if with_stderr else None
             )
-        # (R, K): per-batch-element sums over that element's program rows.
-        return jnp.sum(
-            out[:, :k].reshape(seed_batch, local_programs, k), axis=1
-        )
+
+            def prog(pid):
+                s, q = sweep.program_sums(
+                    seed[rep], base[0] + pid, params[prow, 0],
+                    params[prow, 1], tables, pilots,
+                )
+                return jnp.stack(s), (jnp.stack(q) if q else jnp.zeros(0))
+
+            s, q = jax.vmap(prog)(jnp.arange(local_programs, dtype=jnp.int32))
+            return jnp.sum(s, axis=0), jnp.sum(q, axis=0)
+
+        s, q = jax.vmap(one)(jnp.arange(seed_batch, dtype=jnp.int32))
+        return (s, q) if with_stderr else (s,)
+
+    sweep_fn = reference_sweep if reference else pallas_sweep
 
     def _prep(seed, params):
-        seed_arr = jnp.asarray(seed, jnp.int32).reshape(1, seed_batch)
+        seed_arr = jnp.asarray(seed).astype(jnp.int32).reshape(seed_batch)
         params_arr = jnp.asarray(params, jnp.float32).reshape(
             (seed_batch, 2) if param_batch else (1, 2)
         )
         return seed_arr, params_arr
 
     def _shape_result(sums):
-        # sums: (R, K) f32 means; single-seed programs keep the (K,) shape
-        # (param-batched programs always return the (R, K) batch, even at
-        # R=1, so callers see one stable contract).
+        # Single-seed programs keep the (K,) shape; param-batched programs
+        # always return the (R, K) batch.
         if param_batch:
             return sums
         return sums[0] if seed_batch == 1 else sums
 
     def _pilot_weight(x, weight_tables, q_pilot_val=None):
-        """Pilot-grid IS weight p(x)/q(x) OUTSIDE the kernel.  Table
-        modes interpolate the raw uniform-grid tables (0 outside
-        support, like the in-kernel uniform_table_value); traced modes
-        call the pdf closures directly.  The pilot is an arbitrary
-        fixed shift — only determinism across devices matters — so this
-        plain-XLA lookup need not be bit-equal to the in-kernel one."""
+        """Pilot-grid IS weight p(x)/q(x) outside the kernel.  The pilot
+        is an arbitrary fixed shift — only determinism across devices
+        matters — so this plain lookup need not match the kernel's."""
         if is_weight is None:
             return None
         wt = list(weight_tables)
@@ -1250,47 +703,29 @@ def build_integrate_fn_pallas(
             inside = jnp.logical_and(x >= xs[0], x <= xs[-1])
             return jnp.where(inside, v, 0.0).astype(jnp.float32)
 
-        p_val = mode_val(p_mode, p_table)
-        if q_sampler:
-            # The pilot x block IS the stratified ts table (prepped[0]),
-            # so the qs table (prepped[2]) is the density at exactly
-            # those knots — no lookup needed (q_pilot threaded by the
-            # caller).
+        p_val = mode_val(sweep.p_mode, sweep.p_table)
+        if sweep.q_sampler:
             q_val = q_pilot_val
         else:
-            q_val = mode_val(q_mode, q_table)
+            q_val = mode_val(sweep.q_mode, sweep.q_table)
         safe_q = jnp.where(q_val > 0, q_val, 1.0)
         return jnp.where(q_val > 0, p_val / safe_q, 0.0)
 
     def _pilot_vals(p1, p2, prepped, weight_tables):
         """(K,) per-function means over a deterministic quantile grid of
-        the sampling distribution.  For CUSTOM families the stratified
-        inverse table itself IS an equal-mass quantile grid, so it
-        doubles as the pilot sample block.  With is_weight the grid
-        evals carry the IS weight, shifting squares of the WEIGHTED
-        integrands (the quantity the kernel accumulates)."""
+        the sampling distribution (for CUSTOM families the stratified
+        inverse table itself is an equal-mass quantile grid).  With IS
+        weights the grid evaluations carry the weight."""
         if is_custom:
             x = prepped[0]
         else:
-            n_p = 8 * LANES
+            n_p = 1024
             u = (
                 jnp.arange(n_p, dtype=jnp.float32) + jnp.float32(0.5)
             ) / jnp.float32(n_p)
-            u = u.reshape(8, LANES)
-            if kind == DistKind.UNIFORM:
-                x = p1 + u * (p2 - p1)
-            elif kind == DistKind.NORMAL:
-                from ..sampling import normal_from_u01
-
-                x = p1 + p2 * normal_from_u01(u)
-            elif kind == DistKind.EXPONENTIAL:
-                x = -jnp.log(jnp.maximum(u, 1e-7)) / p1
-            else:
-                from ..sampling import ANALYTIC_EXT
-
-                x = ANALYTIC_EXT[kind].inv_cdf(u, p1, p2)
+            x = transform(kind, u, p1, p2)
         w = _pilot_weight(
-            x, weight_tables, prepped[2] if q_sampler else None
+            x, weight_tables, prepped[2] if sweep.q_sampler else None
         )
 
         def f_val(f):
@@ -1300,33 +735,22 @@ def build_integrate_fn_pallas(
         return jnp.stack([jnp.mean(f_val(f)) for f in eval_fns])
 
     def _pilot_of(params_arr, prepped, weight_tables=()):
-        """Pilot table: one (128,) row per param-batch rep (each rep has
-        its own distribution), a single shared row otherwise — identical
-        on every device (pure function of replicated inputs), so shifted
-        squares psum consistently."""
+        """(rows, K) pilot table: one row per param-batch rep, a single
+        shared row otherwise — identical on every device."""
         if param_batch:
-            vals = jax.vmap(
+            return jax.vmap(
                 lambda p: _pilot_vals(p[0], p[1], prepped, weight_tables)
-            )(params_arr)  # (R, K)
-            rows = jnp.zeros((seed_batch, LANES), jnp.float32)
-            return rows.at[:, :k].set(vals)
-        vals = _pilot_vals(
+            )(params_arr)
+        return _pilot_vals(
             params_arr[0, 0], params_arr[0, 1], prepped, weight_tables
-        )
-        return jnp.zeros((1, LANES), jnp.float32).at[0, :k].set(vals)
+        )[None, :]
 
     def _finish_stderr(sums, sqs, pilot):
-        # sums/sqs are (R, K); single-seed programs keep (K,) results
-        # (param-batched programs always keep the batch axis).
         n = jnp.float32(actual)
-        # Antithetic squares are of PAIR MEANS, so the error bar's iid
-        # unit count is the pair count.
+        # Antithetic squares are of pair means: the iid unit is the pair.
         n_units = jnp.float32(actual // 2 if anti else actual)
         mean = sums / n
-        # Var[f] = E[(f-c)^2] - (mean-c)^2 for any shift c; c ~ mean
-        # keeps both terms O(std^2) (no f32 cancellation).  pilot rows
-        # broadcast (R or 1, K) against the (R, K) means.
-        d = mean - pilot[:, :k]
+        d = mean - pilot
         var = jnp.maximum(sqs / n_units - d * d, 0.0)
         se = jnp.sqrt(var / n_units)
         if seed_batch == 1 and not param_batch:
@@ -1337,93 +761,76 @@ def build_integrate_fn_pallas(
         prepped = []
         if is_custom:
             if gapped_tables:
-                ts = jnp.asarray(x_table, jnp.float32)
-                dts = jnp.asarray(cdf_table, jnp.float32)
-                rep = block_rows // ts.shape[0]
                 prepped += [
-                    jnp.repeat(ts, rep, axis=0),
-                    jnp.repeat(dts, rep, axis=0),
+                    jnp.asarray(x_table, jnp.float32).reshape(-1),
+                    jnp.asarray(cdf_table, jnp.float32).reshape(-1),
                 ]
             else:
+                strata = strata_for(block, int(jnp.shape(x_table)[0]))
                 prepped += list(
                     prep_inv_table_stratified(
-                        x_table, block_rows, with_pdf=q_sampler
+                        x_table, strata, with_pdf=sweep.q_sampler
                     )
                 )
         wt = list(weight_tables)
-        for flag in (p_table, q_table):
+        for flag in (sweep.p_table, sweep.q_table):
             if flag:
-                xs = jnp.asarray(wt.pop(0), jnp.float32)
-                vals = jnp.asarray(wt.pop(0), jnp.float32)
-                prepped += list(pad_uniform_table(xs, vals, 0.0))
+                prepped += list(uniform_table(wt.pop(0), wt.pop(0)))
         return tuple(prepped)
+
+    def _finish(sums_sqs, pilot):
+        if with_stderr:
+            return _finish_stderr(sums_sqs[0], sums_sqs[1], pilot)
+        return _shape_result(sums_sqs[0] / jnp.float32(actual))
 
     if mesh is None:
 
         @jax.jit
         def run(seed, params, x_table, cdf_table, *weight_tables):
             seed_arr, params_arr = _prep(seed, params)
-            base = jnp.zeros((1, 1), jnp.int32)
+            base = jnp.zeros((1,), jnp.int32)
+            prepped = _prep_tables(x_table, cdf_table, weight_tables)
+            pilot = None
+            extra = ()
+            if with_stderr:
+                pilot = _pilot_of(params_arr, prepped, weight_tables)
+                extra = (pilot,)
+            out = sweep_fn(seed_arr, params_arr, base, *extra, *prepped)
+            return _finish(out, pilot)
+
+    else:
+        replicated = P()
+
+        def sharded_body(seed_arr, params_arr, *tables):
+            d = jax.lax.axis_index(axis_name)
+            base = (d * local_programs).astype(jnp.int32).reshape(1)
+            out = pallas_sweep(seed_arr, params_arr, base, *tables)
+            out = tuple(jax.lax.psum(o, axis_name) for o in out)
+            return _finish(out, tables[0] if with_stderr else None)
+
+        def shard_mapped(seed_arr, params_arr, *tables):
+            return jax.shard_map(
+                sharded_body,
+                mesh=mesh,
+                in_specs=(replicated,) * (2 + len(tables)),
+                out_specs=(
+                    (replicated, replicated) if with_stderr else replicated
+                ),
+                check_vma=False,
+            )(seed_arr, params_arr, *tables)
+
+        @jax.jit
+        def run(seed, params, x_table, cdf_table, *weight_tables):
+            seed_arr, params_arr = _prep(seed, params)
             prepped = _prep_tables(x_table, cdf_table, weight_tables)
             if with_stderr:
                 pilot = _pilot_of(params_arr, prepped, weight_tables)
-                sums, sqs = pallas_sweep(
-                    seed_arr, params_arr, base, pilot, *prepped
-                )
-                return _finish_stderr(sums, sqs, pilot)
-            sums = pallas_sweep(seed_arr, params_arr, base, *prepped)
-            return _shape_result(sums / jnp.float32(actual))
+                return shard_mapped(seed_arr, params_arr, pilot, *prepped)
+            return shard_mapped(seed_arr, params_arr, *prepped)
 
-        # The device executes this many samples per batch element (the
-        # grid re-rounds plan.actual_samples); callers measuring
-        # throughput must divide by this, not re-derive it.
-        run.actual_samples = actual
-        # Gapped-table callers build host tables at block_rows // 8 strata.
-        run.block_rows = block_rows
-        return run
-
-    replicated = P()
-
-    def sharded_body(seed_arr, params_arr, *tables):
-        d = jax.lax.axis_index(axis_name)
-        base = (d * local_programs).astype(jnp.int32).reshape(1, 1)
-        if with_stderr:
-            pilot, tables = tables[0], tables[1:]
-            sums, sqs = pallas_sweep(
-                seed_arr, params_arr, base, pilot, *tables
-            )
-            return _finish_stderr(
-                jax.lax.psum(sums, axis_name),
-                jax.lax.psum(sqs, axis_name),
-                pilot,
-            )
-        sums = pallas_sweep(seed_arr, params_arr, base, *tables)
-        return _shape_result(
-            jax.lax.psum(sums, axis_name) / jnp.float32(actual)
-        )
-
-    n_extra = ((3 if q_sampler else 2) if is_custom else 0) + 3 * (
-        int(p_table) + int(q_table)
-    )
-    if with_stderr:
-        n_extra += 1  # replicated pilot row
-    shard_mapped = jax.shard_map(
-        sharded_body,
-        mesh=mesh,
-        in_specs=(replicated, replicated) + (replicated,) * n_extra,
-        out_specs=(replicated, replicated) if with_stderr else replicated,
-        check_vma=False,
-    )
-
-    @jax.jit
-    def run(seed, params, x_table, cdf_table, *weight_tables):
-        seed_arr, params_arr = _prep(seed, params)
-        prepped = _prep_tables(x_table, cdf_table, weight_tables)
-        if with_stderr:
-            pilot = _pilot_of(params_arr, prepped, weight_tables)
-            return shard_mapped(seed_arr, params_arr, pilot, *prepped)
-        return shard_mapped(seed_arr, params_arr, *prepped)
-
+    # The device executes this many samples per batch element (the grid
+    # re-rounds plan.actual_samples); throughput divides by this.
     run.actual_samples = actual
-    run.block_rows = block_rows
+    # Gap-respecting callers build their host tables at this many strata.
+    run.strata = strata_for(block)
     return run

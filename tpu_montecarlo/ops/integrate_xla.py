@@ -6,7 +6,7 @@ like the reference's K register accumulators, src/shader_gen.rs:264-303),
 and accumulates per-function partial sums with Kahan compensation.  The
 final reduction happens on-device — replacing the reference's CPU mean over
 65,536 thread partials (src/lib.rs:129-140) with an in-register tree
-reduction plus (on a mesh) a psum over ICI.
+reduction plus (on a mesh) a psum across devices.
 
 Sample-count semantics match the reference: the processed count is the
 plan's rounded-up ``actual_samples >= n_samples`` with equal weighting

@@ -1,7 +1,7 @@
 """Massively parallel independence-sampler Metropolis-Hastings (XLA backend).
 
 One chain per lane; a ``lax.scan`` over ``n_burnin + n_steps`` iterations
-carries (x, log_p, K accumulators) per chain — the TPU analog of the
+carries (x, log_p, K accumulators) per chain — the JAX analog of the
 reference's per-thread ``var<private>`` chain state and sequential MH loop
 (src/shader_gen.rs:312-442).  Semantics preserved:
 

@@ -43,13 +43,10 @@ __all__ = [
     "derive_shift",
     "qmc_u01_halfopen",
     "qmc_u01_open",
-    "sobol_base_bits",
     "sobol_bits",
     "sobol_direction_numbers",
-    "sobol_offset_bits",
     "sobol_u01_halfopen",
     "sobol_u01_open",
-    "sobol_u01_split",
     "QMC_MAX_SAMPLES",
     "SOBOL_MAX_DIMS",
 ]
@@ -107,8 +104,8 @@ def derive_segment_shift(base_shift, seg):
 
     Segment 0 keeps ``base_shift`` unchanged, so sub-2^32 runs are
     bit-identical to the unsegmented path; higher segments re-mix the
-    base rotation with the segment index (scalar uint32 PCG — compiles
-    on Mosaic, which already runs derive_shift in-kernel), making each
+    base rotation with the segment index (scalar uint32 PCG, as
+    derive_shift runs in-kernel), making each
     cycle an independent Cranley-Patterson rotation of the point set."""
     seg_u = jnp.asarray(seg).astype(jnp.uint32)
     mixed = _pcg_mix(base_shift ^ (seg_u * jnp.uint32(0x9E3779B9)))
@@ -116,8 +113,8 @@ def derive_segment_shift(base_shift, seg):
 
 
 def _mantissa24(bits):
-    """Top 24 bits as int32 (uint32->f32 casts are unsupported on Mosaic;
-    after the >>8 the value fits int32 exactly)."""
+    """Top 24 bits as int32 (after the >>8 the value fits int32
+    exactly)."""
     import jax
 
     return jax.lax.bitcast_convert_type(bits >> 8, jnp.int32)
@@ -143,8 +140,7 @@ def qmc_u01_open(idx, shift):
 # polynomials over GF(2) with the Joe-Kuo initial values, the standard
 # construction for multi-dimensional digital nets.  Point j of dimension d
 # is the XOR of the direction numbers selected by the set bits of j — pure
-# uint32 shift/and/xor lane math (Mosaic-compatible: no scalar casts, no
-# gathers), with the same Cranley-Patterson rotation + 24-bit mantissa
+# uint32 shift/and/xor math (no gathers), with the same Cranley-Patterson rotation + 24-bit mantissa
 # pipeline as the 1-D stream.
 # ---------------------------------------------------------------------------
 
@@ -252,59 +248,3 @@ def sobol_u01_open(idx, shift, v32):
     """(0, 1] variant (for log-consuming transforms)."""
     bits = sobol_bits(idx, v32) + shift
     return (_mantissa24(bits) + 1).astype(jnp.float32) * _INV_2POW24
-
-
-# ---------------------------------------------------------------------------
-# Split Sobol generation for block-strided index streams.
-#
-# The kernels enumerate the global index as ``g = b * B + pos`` with B a
-# power of two (the per-iteration block size) and ``pos < B`` the static
-# within-block iota — so the base and offset occupy DISJOINT bit ranges
-# and the GF(2) linearity of the digital net gives
-#
-#     sobol_bits(g) = sobol_bits(b << log2 B)  ^  sobol_bits(pos).
-#
-# The offset term is CONSTANT across the sample loop (hoisted once per
-# kernel, one lane-op per possibly-set bit), and the base term depends
-# only on the SCALAR block index b — up to ``32 - log2 B`` scalar
-# shift/and/xor steps per loop iteration instead of 32 multi-op VECTOR
-# steps per dimension per iteration.  This is what closes the nd Sobol
-# throughput gap (round 5): per-dimension per-iteration vector work
-# drops from ~128 lane-ops to one broadcast XOR.  Bits produced are
-# IDENTICAL to sobol_bits(g), so estimates are unchanged.
-# ---------------------------------------------------------------------------
-
-
-def sobol_offset_bits(pos, v32, pos_bits: int):
-    """Sobol XOR of the static within-block offsets (``pos < 2^pos_bits``):
-    one lane-op per offset bit, hoisted out of the sample loop."""
-    pos = pos.astype(jnp.uint32)
-    x = jnp.zeros_like(pos)
-    for b in range(pos_bits):
-        bit = (pos >> jnp.uint32(b)) & jnp.uint32(1)
-        x = x ^ (jnp.uint32(int(v32[b])) * bit)
-    return x
-
-
-def sobol_base_bits(b, v32, pos_bits: int, max_bits: int = 32):
-    """Sobol XOR of the scalar block index ``b`` occupying global-index
-    bits [pos_bits, max_bits): pure scalar uint32 shift/and/xor (SREG
-    work on Mosaic — no bitcasts), broadcast-XORed with the offset
-    block by the caller."""
-    b = jnp.asarray(b).astype(jnp.uint32)
-    x = jnp.uint32(0)
-    for i in range(max(0, max_bits - pos_bits)):
-        bit = (b >> jnp.uint32(i)) & jnp.uint32(1)
-        x = x ^ (jnp.uint32(int(v32[pos_bits + i])) * bit)
-    return x
-
-
-def sobol_u01_split(base_bits, offset_bits, shift, open01: bool = False):
-    """Rotated Sobol uniforms from pre-split (scalar base, block offset)
-    parts — bit-identical to sobol_u01_halfopen/open on the recombined
-    index."""
-    bits = (base_bits ^ offset_bits) + shift
-    m = _mantissa24(bits)
-    if open01:
-        return (m + 1).astype(jnp.float32) * _INV_2POW24
-    return m.astype(jnp.float32) * _INV_2POW24

@@ -3,7 +3,9 @@
 The reference is single-device (one wgpu adapter, src/engine.rs:91-131);
 multi-chip scale-out here is pure data parallelism over the sample/chain
 axis: each device sweeps a disjoint chunk range / chain block and partial
-sums combine with psum over ICI (SURVEY.md §2.4).
+sums combine with a psum across devices (SURVEY.md §2.4).  The mesh is a
+plain 1-D mesh over the devices: the cards of one host are joined all to
+all, so no topology is assumed.
 """
 
 from __future__ import annotations

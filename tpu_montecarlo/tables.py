@@ -36,8 +36,8 @@ MIN_TABLE_POINTS = 1000
 LOG_PDF_FLOOR = -100.0
 # Knot count of the uniform-u inverse-CDF table used by the device
 # samplers.  Gathers over arbitrary sorted knots (binary search, the
-# reference's 12-iteration device loop, distribution.rs:128-158) are
-# pathological on TPU; resampling the exact piecewise-linear inverse onto a
+# reference's 12-iteration device loop, distribution.rs:128-158) cost a
+# dependent load per step; resampling the exact piecewise-linear inverse onto a
 # uniform u-grid on the host turns device sampling into index arithmetic +
 # two small-table lookups.  4096 knots keep moment errors far below the
 # reference's statistical test tolerances.
@@ -392,7 +392,7 @@ def resample_uniform_table(
     """Resample a piecewise-linear table onto a uniform x-grid, error-bounded.
 
     User tables from ``from_pdf_table`` may have irregular knot spacing,
-    which forces device lookups through searchsorted (pathological on TPU).
+    which forces device lookups through searchsorted.
     This re-knots them onto a uniform grid, doubling the point count until
     the two linear interpolants differ by at most ``rtol * max|values|``
     everywhere (probed at the union of both knot sets).  Returns None when

@@ -6,7 +6,7 @@ callables written against a restricted math subset of Python — lambdas or
 ``def`` functions of one float argument using arithmetic, comparisons,
 ``math``/``numpy`` functions, ternaries, ``and``/``or``, ``if``/``while``
 statements, and captured numeric constants — and turns them into pure,
-jittable JAX scalar functions that compile straight into fused TPU kernels.
+jittable JAX scalar functions that compile straight into fused kernels.
 
 Instead of generating device source text, we *symbolically evaluate* the
 function's AST on JAX tracers:
@@ -96,14 +96,14 @@ class _Vec:
 
     Components stay independent scalar dataflow — never stacked into an
     (N, ...) array — so vec code lowers to exactly the elementwise ops the
-    Pallas kernels accept (a stacked leading axis would make 3-D blocks
-    Mosaic cannot tile, and lane-axis gathers the kernels must avoid).
+    Pallas kernels accept (a stacked leading axis would add a block
+    dimension and gathers the kernels must avoid).
     Registered as a pytree, so ``lax.while_loop`` carries and branch
     merges thread vec-typed variables transparently.
 
     The reference accepts any WGSL naga compiles, including vector and
     array locals (python/wgpu_montecarlo/__init__.py:738-747 passes source
-    through unchanged); this is the TPU counterpart for that surface.
+    through unchanged); this is the JAX counterpart for that surface.
     """
 
     __slots__ = ("comps",)
@@ -233,7 +233,7 @@ class _Vec:
         indices lower to a running select chain whose result is the
         clamped component (WGSL's out-of-bounds behaviour is an
         implementation-defined clamp; the chain realises clamp-to-edge
-        with no gather, keeping the kernel path lane-local)."""
+        with no gather, keeping the kernel path elementwise)."""
         k = self._static_index(idx)
         if k is not None:
             if not 0 <= k < len(self):
@@ -521,9 +521,8 @@ def _is_bool_like(v):
 
 def _bit_binop(op: str, a, b):
     """WGSL's ``& | ^ << >>`` on the front-end's f32-modeled integers:
-    convert to int32, operate, convert back — both conversions have
-    Mosaic lowerings (the kernels already use them), unlike uint32
-    bitcasts.  On BOOL operands ``& | ^`` are the logical connectives
+    convert to int32, operate, convert back — both conversions lower
+    on every backend and in the kernels.  On BOOL operands ``& | ^`` are the logical connectives
     (Python traced lambdas write ``(x > a) & (x < b)``).  Shift
     amounts mask to the 32-bit width, as WGSL mandates.  Note the
     model's limits: integers are exact only to 2^24 (f32 mantissa) and
@@ -688,12 +687,10 @@ def _smoothstep(e0, e1, x):
 
 
 def _merge(cond, t_val, f_val):
-    """``where(cond, t, f)`` with a boolean-branch special case: a
-    select BETWEEN BOOL blocks lowers to an ``i8 -> i1`` vector
-    truncation Mosaic rejects ("Unsupported target bitwidth for
-    truncation" — hit by WGSL ``switch``/BoolOp code on the kernel
-    path), so bool branches compute the select logically (identical
-    semantics).  ``cond`` must already be boolean."""
+    """``where(cond, t, f)`` with a boolean-branch special case: bool
+    branches compute the select logically (identical semantics, and no
+    select between bool blocks for a kernel lowering to handle).
+    ``cond`` must already be boolean."""
     if isinstance(t_val, _Struct) or isinstance(f_val, _Struct):
         # Branch merges of struct variables: field-by-field.
         if not (
@@ -759,6 +756,20 @@ def _cast_f32(v):
     return v.astype(jnp.float32)
 
 
+def _round_half_even(x):
+    """``round`` with ties to even (Python, numpy and WGSL semantics) from
+    floor/compare/select alone, which every backend lowers — the Pallas
+    Triton route has no rounding primitive."""
+    x = jnp.asarray(x)
+    if not jnp.issubdtype(x.dtype, jnp.floating):
+        return x
+    f = jnp.floor(x)
+    d = x - f
+    even = f - 2.0 * jnp.floor(0.5 * f) == 0.0
+    up = jnp.logical_or(d > 0.5, jnp.logical_and(d == 0.5, ~even))
+    return jnp.where(up, f + 1.0, f)
+
+
 def _minmax(op):
     def impl(*args):
         if len(args) < 2:
@@ -768,68 +779,47 @@ def _minmax(op):
     return impl
 
 
-def _kernel_dispatch(name: str, slow: Callable) -> Callable:
-    """Math calls resolve per call site: the stock jnp intrinsic
-    everywhere, the ops/fast_math.py implementation while a Pallas
-    builder traces a kernelize()-wrapped integrand.  Two reasons
-    (fast_math docstring): Mosaic's trig intrinsics cost ~6x the
-    polynomial at equal f32 accuracy over MC sample ranges, and
-    asin/acos/atan/atan2/sinh/cosh/asinh/acosh/atanh/expm1/cbrt/
-    copysign have NO Mosaic lowering at all — the dispatch is what
-    makes the whole traceable surface kernel-lowerable."""
-
-    def impl(*args):
-        from .ops import fast_math
-
-        if fast_math.in_kernel():
-            return getattr(fast_math, f"fast_{name}")(*args)
-        return slow(*args)
-
-    impl.__name__ = impl.__qualname__ = f"dispatch_{name}"
-    return impl
-
-
 # Python math-subset name -> JAX implementation.  Mirrors (and modestly
 # extends) the reference transpiler's FUNC_MAP (transpiler.py:82-112).
 _FUNC_MAP: Dict[str, Callable] = {
     "abs": jnp.abs,
     "fabs": jnp.abs,
-    "sin": _kernel_dispatch("sin", jnp.sin),
-    "cos": _kernel_dispatch("cos", jnp.cos),
-    "tan": _kernel_dispatch("tan", jnp.tan),
-    "asin": _kernel_dispatch("asin", jnp.arcsin),
-    "acos": _kernel_dispatch("acos", jnp.arccos),
-    "atan": _kernel_dispatch("atan", jnp.arctan),
-    "atan2": _kernel_dispatch("atan2", jnp.arctan2),
-    "arcsin": _kernel_dispatch("asin", jnp.arcsin),
-    "arccos": _kernel_dispatch("acos", jnp.arccos),
-    "arctan": _kernel_dispatch("atan", jnp.arctan),
-    "arctan2": _kernel_dispatch("atan2", jnp.arctan2),
-    "sinh": _kernel_dispatch("sinh", jnp.sinh),
-    "cosh": _kernel_dispatch("cosh", jnp.cosh),
+    "sin": jnp.sin,
+    "cos": jnp.cos,
+    "tan": jnp.tan,
+    "asin": jnp.arcsin,
+    "acos": jnp.arccos,
+    "atan": jnp.arctan,
+    "atan2": jnp.arctan2,
+    "arcsin": jnp.arcsin,
+    "arccos": jnp.arccos,
+    "arctan": jnp.arctan,
+    "arctan2": jnp.arctan2,
+    "sinh": jnp.sinh,
+    "cosh": jnp.cosh,
     "tanh": jnp.tanh,
-    "asinh": _kernel_dispatch("asinh", jnp.arcsinh),
-    "acosh": _kernel_dispatch("acosh", jnp.arccosh),
-    "atanh": _kernel_dispatch("atanh", jnp.arctanh),
-    "arcsinh": _kernel_dispatch("asinh", jnp.arcsinh),
-    "arccosh": _kernel_dispatch("acosh", jnp.arccosh),
-    "arctanh": _kernel_dispatch("atanh", jnp.arctanh),
+    "asinh": jnp.arcsinh,
+    "acosh": jnp.arccosh,
+    "atanh": jnp.arctanh,
+    "arcsinh": jnp.arcsinh,
+    "arccosh": jnp.arccosh,
+    "arctanh": jnp.arctanh,
     "sqrt": jnp.sqrt,
-    "cbrt": _kernel_dispatch("cbrt", jnp.cbrt),
+    "cbrt": jnp.cbrt,
     "exp": jnp.exp,
     "exp2": jnp.exp2,
-    "expm1": _kernel_dispatch("expm1", jnp.expm1),
+    "expm1": jnp.expm1,
     "log": jnp.log,
     "log2": jnp.log2,
     "log10": jnp.log10,
     "log1p": jnp.log1p,
     "floor": jnp.floor,
     "ceil": jnp.ceil,
-    "round": jnp.round,
+    "round": _round_half_even,
     "trunc": jnp.trunc,
     "fract": _fract,
     "sign": jnp.sign,
-    "copysign": _kernel_dispatch("copysign", jnp.copysign),
+    "copysign": jnp.copysign,
     "fmod": jnp.fmod,
     "hypot": jnp.hypot,
     "degrees": jnp.degrees,
@@ -891,7 +881,7 @@ _BUILTIN_FUNCS = {
     "min": _FUNC_MAP["min"],
     "max": _FUNC_MAP["max"],
     "pow": jnp.power,
-    "round": jnp.round,
+    "round": _round_half_even,
 }
 
 

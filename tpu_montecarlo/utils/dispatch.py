@@ -1,14 +1,14 @@
-"""Workload planning: the TPU analog of the reference dispatch planner.
+"""Workload planning: the JAX analog of the reference dispatch planner.
 
 The reference partitions N samples over ~65,536 GPU threads with
 ``loops_per_thread = ceil(N / total_threads)`` (src/engine.rs:157-181); every
 thread contributes equally, so the *actual* processed sample count is the
 rounded-up ``total_threads * loops_per_thread >= N``.
 
-On TPU the same partitioning becomes: a scan over ``n_chunks`` blocks of
-``chunk_elems`` samples, sized to keep each block comfortably in VMEM/vector
-registers.  We preserve the equal-weight, rounded-up-count semantics —
-``actual_samples >= n_samples`` and the mean divides by ``actual_samples``.
+For the XLA sweep the same partitioning becomes a scan over ``n_chunks``
+blocks of ``chunk_elems`` samples.  We preserve the equal-weight,
+rounded-up-count semantics — ``actual_samples >= n_samples`` and the mean
+divides by ``actual_samples``.
 """
 
 from __future__ import annotations
@@ -20,20 +20,19 @@ __all__ = ["IntegratePlan", "make_integrate_plan", "round_up", "DEFAULT_TARGET_T
 # Reference defaults: target 65,536 threads, workgroup 256 (engine.rs:164-165).
 DEFAULT_TARGET_THREADS = 65_536
 _LANE_MULTIPLE = 256
-# Max elements per scan block (bounds peak memory for sample blocks).
-# TPUs take large blocks (big HBM, per-step overhead amortisation matters);
-# the CPU test backend keeps blocks small.
+# Max elements per scan block.  On the GPU larger blocks amortise the
+# scan's per-step cost: 1 << 26 measured fastest of 1 << 22 / 24 / 26 on
+# an H100 at the K=8 headline, for a peak of ~270 MB of device memory
+# (PERF.md); the CPU test backend keeps blocks small.
 DEFAULT_MAX_CHUNK_ELEMS = 1 << 22
+GPU_MAX_CHUNK_ELEMS = 1 << 26
 
 
 def default_max_chunk_elems() -> int:
     import jax
 
-    try:
-        backend = jax.default_backend()
-    except Exception:
-        backend = "cpu"
-    return (1 << 27) if backend == "tpu" else DEFAULT_MAX_CHUNK_ELEMS
+    gpu = jax.default_backend() == "gpu"
+    return GPU_MAX_CHUNK_ELEMS if gpu else DEFAULT_MAX_CHUNK_ELEMS
 
 
 def round_up(x: int, m: int) -> int:

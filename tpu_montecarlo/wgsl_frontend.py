@@ -2,8 +2,8 @@
 
 The reference API accepts raw WGSL source strings wherever it accepts
 Python callables (reference: python/wgpu_montecarlo/__init__.py:734-747,
-tests/test_integrator.py:48-68).  To keep that surface working on TPU —
-where there is no WGSL compiler — this module parses the WGSL *function*
+tests/test_integrator.py:48-68).  To keep that surface working without
+a WGSL compiler, this module parses the WGSL *function*
 subset the reference emits and consumes (scalar ``fn name(x: f32) -> f32``
 definitions with let/var, if/else, while, ``for``, ``loop`` with an
 optional ``continuing { ... break if cond; }`` block, ``break`` /
@@ -17,7 +17,7 @@ the entry point, matching ``_rename_wgsl_function``'s first-match rename
 (__init__.py:1123-1135).
 
 Structured jumps lower to flag-guarded dataflow because the interpreter's
-loops become ``lax.while_loop`` (no early exit on TPU): each loop with
+loops become ``lax.while_loop`` (no early exit in a traced loop): each loop with
 jumps gets a break flag (conjoined into the loop condition) and a continue
 flag (reset every iteration); statements following a conditional jump are
 wrapped in ``if (flags == 0)`` guards.  ``break`` inside ``switch`` binds
@@ -113,8 +113,8 @@ def _cast_f32(x):
 
 def _cast_int(x):
     """WGSL u32()/i32() conversion: truncate toward zero (the all-f32
-    integer model; floor/ceil both have Mosaic lowerings, trunc via the
-    sign select)."""
+    integer model; floor/ceil lower everywhere, trunc via the sign
+    select)."""
     if isinstance(x, float):
         return float(int(x))
     import jax.numpy as jnp
